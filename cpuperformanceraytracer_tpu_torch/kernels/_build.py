@@ -1,0 +1,116 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
+the build takes seconds). Each pointer and the stream pass as
+``c_void_p``; every C entry point returns the ``cudaError_t`` of its
+launch, which ``check`` turns into an exception.
+
+The library goes to ``<repo>/build/kernels/`` (``build/`` is listed in
+``.gitignore``), named by a hash of the sources and flags, and is built
+at the first use in a process. Nothing is compiled at import time.
+
+Flags: ``sm_90a``, ``-O3``, ``--fmad=false`` and no ``--use_fast_math``
+(the default ``-prec-div=true -prec-sqrt=true`` stay): the parity policy
+of the JAX reference, exact division and sqrt and no FMA contraction.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "cprt_render_planes": [
+        _P, _I, _P, _I, _P, _I, _P,      # tables and their row counts
+        _P,                               # out (12, H, W)
+        _I, _I, _I, _I, _I, _I,           # width height frame sample0 spp bounces
+        _I, _I, _I, _I, _I, _I, _I,       # counter env_draws env_none roulette zangle jitter early_exit
+        _F, _F,                           # aspect inv_spp
+        _P,                               # stream
+    ],
+    "cprt_env_accumulate": [
+        _P, _I,                           # planes (12, H, W), H*W
+        _P, _P, _P, _I, _I,               # texture r g b, width, height
+        _P, _F,                           # accum (3, H, W), blend
+        _I, _I, _I, _I,                   # sum_into env stochastic flip
+        _P,                               # index_out (nullable)
+        _P,                               # stream
+    ],
+}
+
+
+@dataclass(frozen=True)
+class Build:
+    path: Path
+    log: str          # nvcc's output (ptxas register and spill report)
+    seconds: float    # 0.0 when the library was already built
+
+
+def _nvcc() -> str:
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from csrc/ at first use")
+
+
+def build() -> Build:
+    """Compile the library unless a build of these exact sources exists."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = hashlib.sha1()
+    for p in sources:
+        digest.update(p.name.encode() + p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    path = BUILD_DIR / f"libcprt_kernels_{digest.hexdigest()[:16]}.so"
+    if path.exists():
+        return Build(path, "", 0.0)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           *map(str, sources)], capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    return Build(path, proc.stdout + proc.stderr, seconds)
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build().path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.cprt_error_string.argtypes = [ctypes.c_int]
+    lib.cprt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err:
+        msg = load_library().cprt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")

@@ -1,0 +1,69 @@
+"""Shared helpers for the PyTorch port's parity tests (tests/test_torch_*).
+
+The same inputs, made from a seed with numpy, go through the JAX
+package (on the CPU, as conftest.py sets it up) and through the port;
+data crosses between the two as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+# six xdist workers share the machine: one intra-op thread each
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda_device():
+    """The GPU, or a skip: CUDA tests need a card (marker ``cuda``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+def jax_cfg(**kw):
+    """A JAX-package RenderConfig on the Pallas megakernel path at a
+    test size (8x128 blocks)."""
+    from cpuperformanceraytracer_tpu.config import RenderConfig
+
+    base = dict(width=128, height=16, spp=1, backend="pallas",
+                tile_height=8, tile_width=128, num_frames=3,
+                warmup_frames=0)
+    base.update(kw)
+    return RenderConfig(**base)
+
+
+def port_cfg(jcfg, **kw):
+    """The port's RenderConfig with every field the two share."""
+    from cpuperformanceraytracer_tpu_torch.config import RenderConfig
+
+    names = {f.name for f in dataclasses.fields(RenderConfig)} - {"backend"}
+    shared = {n: getattr(jcfg, n) for n in names}
+    shared.update(kw)
+    return RenderConfig(**shared)
+
+
+def port_scene(jax_scene, jax_camera, device="cpu"):
+    """The JAX scene and camera, converted to the port's objects."""
+    from cpuperformanceraytracer_tpu_torch.io.convert import (
+        camera_from,
+        scene_from,
+    )
+
+    return scene_from(jax_scene, device), camera_from(jax_camera, device)
+
+
+def assert_robust(a, b, rel_mean=1e-2, frac=0.02, what=""):
+    """Glass/lottery parity (tests/test_pallas.py policy): a 1-ulp
+    transcendental difference may flip one path, so per channel the
+    means agree to ``rel_mean`` and under ``frac`` of pixels differ by
+    more than 1e-3."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    assert abs(a.mean() - b.mean()) < rel_mean * max(abs(a.mean()), 1e-3), (
+        f"{what}: means {a.mean():.6g} vs {b.mean():.6g}")
+    off = np.mean(np.abs(a - b) > 1e-3)
+    assert off < frac, f"{what}: {off:.4%} of pixels differ by > 1e-3"
