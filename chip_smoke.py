@@ -25,16 +25,39 @@ Phases, one line each; any failure raises and the exit code is not 0:
    within 1e-2 relative, under 1% of pixels off by > 1e-3: 64 frames, each
    of which may flip a path). The device time per frame is also taken
    with the stream kept full (CUDA events), and the idle share of the
-   timed loop is 1 - that / ms per frame.
+   timed loop is 1 - that / ms per frame;
+6. kernel C (the adjoint megakernel) vs its plain version (autograd of
+   the plain kernel A) on seeded cotangents: the Beer scene (one glass
+   sphere every path refracts through, a geometry gradient) and
+   cornell_box without env, 256x64, 2 bounces, every table cotangent
+   allclose (rtol 1e-3, atol 1e-3 of the largest reference cotangent:
+   the kernel sums in another order); glass_spheres + gradient_sky(512,
+   256) at 1280x720, 8 bounces, relative L2 error under 2e-2 per table
+   (a lottery flip on a few pixels moves a sum over all pixels);
+7. kernel D (env cotangents + texel scatter) vs its plain version at
+   1280x720 pixels and 512x256 texels, on kernel B's indices of phase 4:
+   cot_mt exactly equal, each texel's sum within 4 * 2^-23 * sum|v| of a
+   float64 index_add_;
+8. the training path: fwd_bwd_benchmark(backend="cuda") at the bench
+   workload (counter RNG, params albedo + 0.05, sphere centers + 0.1 and
+   every env texel), 2 warmup + 64 timed steps in 2 spans; kernels C and
+   D launch once per step, A and B once more for the target; gradients
+   finite and within 2e-2 relative L2 of the plain path's on the card;
+   the device time per step with the stream kept full and the idle
+   share; then 8 Adam steps of adam_inverse_render on the albedo, whose
+   loss must fall.
 
-Then one JSON line with each kernel's numbers, the card's nvidia-smi
-line, and last ``{"ok": true, "device": {...}}``. Without a GPU it exits
-non-zero before printing any result.
+Then one JSON line with each kernel's numbers (times, launches on the
+main paths, and the bound: the larger of its bytes over 3.35 TB/s and
+its FP32 operations over 67 TFLOP/s, counted from this run's inputs),
+the card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+Without a GPU it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -42,6 +65,31 @@ import time
 import torch
 
 WARMUP, FRAMES = 2, 64
+STEPS = 64                      # timed training steps (2 spans)
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FP32 FLOP/s
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+
+# FP32 operations the kernels execute unconditionally, counted from
+# csrc/bounce.cuh and csrc/backward.cu (add, sub, mul, div, sqrt, min,
+# max, transcendental: 1 each; integer RNG work, comparisons and
+# selects not counted, so the bound stays a lower bound)
+FLOPS_QUAD, FLOPS_SPHERE = 44, 19      # one ray-object test
+FLOPS_SHADE = 200                      # the rest of a segment
+FLOPS_CAMERA = 29                      # camera ray + output sum, per pixel
+FLOPS_ADJOINT = 110                    # a segment's hand-written adjoint
+FLOPS_CAMERA_ADJ = 27
+
+
+def bound(nbytes: float, flops: float) -> tuple:
+    """(bound_ms, bound_by): the least time the card needs for the work."""
+    t_bytes, t_flops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
+
+
+def segment_flops(tables) -> int:
+    return (FLOPS_QUAD * tables[0].shape[0] + FLOPS_SPHERE * tables[1].shape[0]
+            + FLOPS_SHADE)
 
 
 def phase(name: str, msg: str) -> None:
@@ -81,21 +129,264 @@ def robust(a: torch.Tensor, b: torch.Tensor, what: str, frac: float) -> float:
     return off
 
 
-def device_frame_ms(renderer, n: int) -> float:
-    """Device milliseconds per frame with the stream kept full: a sleep
-    kernel holds the stream while the host enqueues ``n`` frames, so no
-    frame waits for the host (CUDA events)."""
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+def device_frame_ms(step, n: int, sleep_cycles: int = 200_000_000,
+                    windows: int = 1) -> float:
+    """Device milliseconds per call of ``step`` with the stream kept full:
+    in each of ``windows`` windows a sleep kernel (~0.1 s at the H100's
+    clock by default) holds the stream while the host enqueues ``n``
+    calls, so no call waits for the host (CUDA events). A window must
+    hold fewer launches than the stream's launch queue, or the host
+    blocks until the sleep ends."""
+    total = 0.0
+    for _ in range(windows):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(n):
+            step()
+        end.record()
+        if start.query():
+            raise AssertionError("the stream drained while work was enqueued")
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / (n * windows)
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.double() - want.double()).norm()
+            / want.double().norm()).item()
+
+
+def beer_scene(dev):
+    """One glass sphere every path refracts through (refraction chance 1,
+    no specular) over a grey floor: decision-stable, with sphere and
+    camera gradients through Beer absorption."""
+    from cpuperformanceraytracer_tpu_torch.scene.builder import SceneBuilder
+    from cpuperformanceraytracer_tpu_torch.scene.camera import make_camera
+    from cpuperformanceraytracer_tpu_torch.scene.types import Material
+
+    b = SceneBuilder(translation=(0.0, 0.0, 10.0))
+    grey = b.add_material(Material(albedo=(0.6, 0.55, 0.5)))
+    glass = b.add_material(Material(
+        albedo=(0.9, 0.9, 0.9), specular_chance=0.0, refraction_chance=1.0,
+        ior=1.5, refraction_color=(0.5, 0.2, 0.1)))
+    b.add_quad((-25.0, -12.45, 15.0), (25.0, -12.45, 15.0),
+               (25.0, -12.45, -15.0), (-25.0, -12.45, -15.0), grey)
+    b.add_sphere((0.0, -2.0, 0.0), 6.0, glass)
+    return b.build(dev), make_camera((0.0, 0.0, 40.0), 90.0, -1.0, device=dev)
+
+
+TABLES = ("quad", "sphere", "material", "camera")
+
+
+def phase_kernel_c(dev, glass_tables, glass_cfg) -> dict:
+    """Phase 6: kernel C vs its plain version; its numbers for the JSON."""
+    from cpuperformanceraytracer_tpu_torch.config import RenderConfig
+    from cpuperformanceraytracer_tpu_torch.kernels.backward import (
+        bwd_tables,
+        bwd_tables_reference,
+    )
+    from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
+        pack_tables,
+        render_planes_reference,
+    )
+    from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    strict_err = 0.0
+    small = RenderConfig(width=256, height=64, bounces=2, spp=1, rng="counter",
+                         roulette="off")
+    cases = (("beer", beer_scene(dev), small),
+             ("cornell_box", scene_by_name("cornell_box", device=dev),
+              small.replace(scene="cornell_box", env_mode="none",
+                            roulette="v4_quirk")))
+    for name, (scene, cam), cfg in cases:
+        tables = pack_tables(scene, cam, cfg, dev)
+        cot6 = torch.randn((6, cfg.height, cfg.width), device=dev, generator=gen)
+        got = bwd_tables(tables, cfg, 1, 0, cot6)
+        want = bwd_tables_reference(tables, cfg, 1, 0, cot6)
+        torch.cuda.synchronize()
+        scale = max(w.abs().max().item() for w in want)
+        for tbl, g, w in zip(TABLES, got, want):
+            torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3 * scale,
+                                       msg=lambda m: f"kernel C {name} {tbl}: {m}")
+            strict_err = max(strict_err, (g - w).abs().max().item())
+        if name == "beer" and not (want[1].abs().max() > 0
+                                   and want[3][:5].abs().max() > 0):
+            raise AssertionError("kernel C: the Beer scene's sphere or camera "
+                                 "cotangent is zero")
+
+    cfg = glass_cfg.replace(rng="counter")
+    cot6 = torch.randn((6, cfg.height, cfg.width), device=dev, generator=gen)
+    got = bwd_tables(glass_tables, cfg, 1, 0, cot6)
+    want = bwd_tables_reference(glass_tables, cfg, 1, 0, cot6)
     torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clock
-    start.record()
+    rels = {tbl: rel_l2(g, w) for tbl, g, w in zip(TABLES, got, want)
+            if w.norm() > 0}
+    if max(rels.values()) >= 2e-2:
+        raise AssertionError(f"kernel C glass 1280x720: relative L2 {rels}")
+    live = []
+    render_planes_reference(glass_tables, cfg, 1, 0, live_segments=live)
+    ms = cuda_ms(lambda: bwd_tables(glass_tables, cfg, 1, 0, cot6), 10)
+    plain_ms = cuda_ms(
+        lambda: bwd_tables_reference(glass_tables, cfg, 1, 0, cot6), 2, 1)
+    n_px = cfg.width * cfg.height
+    n_blocks = ((cfg.width + 31) // 32) * ((cfg.height + 3) // 4)
+    n_cells = sum(t.numel() for t in glass_tables)
+    flops = (sum(live) * (2 * segment_flops(glass_tables) + FLOPS_ADJOINT)
+             + n_px * (FLOPS_CAMERA + FLOPS_CAMERA_ADJ))
+    bnd = bound(6 * 4 * n_px + 4 * n_blocks * n_cells, flops)
+    phase("kernel C", f"Beer + cornell 256x64 allclose (max abs err "
+          f"{strict_err:.3g}); glass 1280x720 8 bounces relative L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f"; {ms:.4f} ms vs plain {plain_ms:.2f} ms; bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}, {sum(live)} live segments)")
+    return dict(max_abs_err=strict_err, ms=ms, plain_ms=plain_ms, bound=bnd,
+                library_ms=None, rel_l2_1280x720=rels, live_segments=sum(live))
+
+
+def phase_kernel_d(dev, planes, idx, tex) -> dict:
+    """Phase 7: kernel D vs its plain version and a float64 texel sum."""
+    from cpuperformanceraytracer_tpu_torch.kernels.env_backward import (
+        env_backward,
+        env_backward_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g = torch.randn((3,) + tuple(idx.shape), device=dev, generator=gen)
+    mt = planes[6:9]
+    cot, d_tex = env_backward(g, idx, mt, tex)
+    cot_want, _ = env_backward_reference(g, idx, mt, tex)
+    torch.cuda.synchronize()
+    if not torch.equal(cot, cot_want):
+        raise AssertionError("kernel D: cot_mt differs from the plain version")
+    n_tex = tex.width * tex.height
+    flat = idx.reshape(-1)
+    vals = (g * mt).reshape(3, -1).t().contiguous()
+    library = torch.zeros((n_tex, 3), device=dev).index_add_(0, flat, vals)
+    count = torch.bincount(flat, minlength=n_tex).double()
+    # a sum of k f32 terms in any order is within (k - 1) * 2^-24 * sum|v|
+    # of the exact sum (at least the fixed 4 * 2^-23 * sum|v| is allowed),
+    # plus 2^-126 per add: f32 atomics flush subnormals to zero
+    allow = torch.clamp(count - 1.0, min=8.0) * 2.0 ** -24
+    ftz = 2.0 * count * 2.0 ** -126
+    max_err, worst, over_fixed, lib_over = 0.0, 0.0, 0, 0
+    for c in range(3):
+        v = vals[:, c].double()
+        exact = torch.zeros(n_tex, dtype=torch.float64, device=dev)
+        exact.index_add_(0, flat, v)
+        mag = torch.zeros_like(exact).index_add_(0, flat, v.abs())
+        err = (d_tex[c].double() - exact).abs()
+        if (err > allow * mag + ftz).any():
+            raise AssertionError(f"kernel D channel {c}: a texel sum is off "
+                                 f"by more than (k - 1) * 2^-24 * sum|v|")
+        max_err = max(max_err, err.max().item())
+        hit = mag > 0
+        worst = max(worst, (err[hit] / (allow * mag + ftz)[hit]).max().item())
+        fixed = 4 * 2.0 ** -23 * mag
+        over_fixed += int((err > fixed).sum())
+        lib_over += int(((library[:, c].double() - exact).abs() > fixed).sum())
+    ms = cuda_ms(lambda: env_backward(g, idx, mt, tex), 200)
+    plain_ms = cuda_ms(lambda: env_backward_reference(g, idx, mt, tex), 20)
+    scatter = torch.zeros((n_tex, 3), device=dev)
+    library_ms = cuda_ms(lambda: scatter.index_add_(0, flat, vals), 200)
+    n_px = idx.numel()
+    bnd = bound(n_px * (12 + 8 + 12 + 12) + 2 * 3 * 4 * n_tex, 9 * n_px)
+    phase("kernel D", f"cot_mt equal; texel sums within {worst:.3g} of the "
+          f"(k-1)*2^-24*sum|v| bound (max abs err {max_err:.3g}; up to "
+          f"{int(count.max())} pixels on one texel; texel sums over "
+          f"4*2^-23*sum|v|: {over_fixed} here, {lib_over} with index_add_); "
+          f"{ms:.4f} ms "
+          f"vs plain {plain_ms:.4f} ms vs index_add_ {library_ms:.4f} ms; "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound=bnd,
+                library_ms=library_ms)
+
+
+def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
+    """Phase 8: the training path through the kernels."""
+    from cpuperformanceraytracer_tpu_torch.diff.benchgrad import (
+        default_bench_params,
+        fwd_bwd_benchmark,
+    )
+    from cpuperformanceraytracer_tpu_torch.diff.grad import (
+        loss_and_grad,
+        render_for_params,
+    )
+    from cpuperformanceraytracer_tpu_torch.diff.inverse import (
+        InverseProblem,
+        adam_inverse_render,
+    )
+    from cpuperformanceraytracer_tpu_torch.kernels.backward import bwd_tables
+    from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
+    from cpuperformanceraytracer_tpu_torch.kernels.env_backward import env_backward
+    from cpuperformanceraytracer_tpu_torch.kernels.megakernel import render_planes
+
+    cfg = glass_cfg.replace(rng="counter", backend="cuda")
+    kernels = (render_planes, env_accumulate, bwd_tables, env_backward)
+    for k in kernels:
+        k.launches = 0
+    r = fwd_bwd_benchmark(cfg, scene, cam, tex, steps=STEPS, warmup_steps=2,
+                          spans=2)
+    launches = {k.__name__: k.launches for k in kernels}
+    run = 2 + r["steps_timed"]
+    expect = {"render_planes": run + 1, "env_accumulate": run + 1,
+              "bwd_tables": run, "env_backward": run}
+    if launches != expect:
+        raise AssertionError(f"training launches {launches}, expected {expect}")
+    if not r["grads_finite"]:
+        raise AssertionError("training: gradients not finite")
+    phase("training bench", f"{r['ms_per_step']:.4f} ms/step; "
+          f"{r['Mrays_per_s']:.1f} Mrays/s; spans {r['span_ms']} ms; "
+          f"launches {launches}")
+
+    params = default_bench_params(scene, tex)
+    with torch.no_grad():
+        target = render_for_params({}, scene, cam, tex, cfg, 0)
+    # windows of 2 steps (~420 launches): the sleep covers four times the
+    # host clock's time for them (~2 GHz)
+    n = 2
+    busy_ms = device_frame_ms(
+        lambda: loss_and_grad(params, target, scene, cam, tex, cfg, 1), n,
+        int(4 * n * r["ms_per_step"] * 1e-3 * 2.0e9), windows=8)
+    idle = 1.0 - busy_ms / r["ms_per_step"]
+    # the host's own time to enqueue a step (no synchronisation inside)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(n):
-        renderer.step()
-    end.record()
-    if start.query():
-        raise AssertionError("the stream drained while frames were enqueued")
+        loss_and_grad(params, target, scene, cam, tex, cfg, 1)
+    enqueue_ms = (time.perf_counter() - t0) / n * 1e3
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+
+    _, got = loss_and_grad(params, target, scene, cam, tex, cfg, 1)
+    _, want = loss_and_grad(params, target, scene, cam, tex,
+                            cfg.replace(backend="torch"), 1)
+    rels = {k: rel_l2(got[k], want[k]) for k in params}
+    if max(rels.values()) >= 2e-2:
+        raise AssertionError(f"training gradients vs plain path: {rels}")
+
+    m = scene.materials.albedo
+    albedo = torch.stack([m.x, m.y, m.z], -1)
+    _, losses = adam_inverse_render(
+        InverseProblem(scene, cam, tex, cfg, target), {"albedo": albedo + 0.05},
+        steps=8, learning_rate=0.01)
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"inverse: losses {losses}")
+    phase("training path", f"{r['ms_per_step']:.4f} ms/step; "
+          f"{r['Mrays_per_s']:.1f} Mrays/s (1280x720 glass_spheres 8 bounces, "
+          f"counter RNG, env gradient_sky(512,256)); spans {r['span_ms']} ms, "
+          f"spread {r['spread']:.4f}; grads_finite {r['grads_finite']}; "
+          f"launches {launches}; device busy {busy_ms:.4f} ms/step, idle "
+          f"share {idle:.4f}; host enqueue {enqueue_ms:.4f} ms/step; grads "
+          f"vs plain path relative L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f"; inverse losses {[round(x, 6) for x in losses]}; GPU {gpu}")
+    summary = dict(r, device_busy_ms_per_step=busy_ms, idle_share=idle,
+                   host_enqueue_ms_per_step=enqueue_ms,
+                   grad_rel_l2_vs_plain=rels, inverse_losses=losses,
+                   warmup_steps=2)
+    return {"launches": launches, "summary": summary}
 
 
 def main() -> int:
@@ -154,7 +445,8 @@ def main() -> int:
     scene, cam = scene_by_name(cfg.scene, device=dev)
     tables = pack_tables(scene, cam, cfg, dev)
     planes = render_planes(tables, cfg, 0)
-    planes_ref = render_planes_reference(tables, cfg, 0)
+    live_a = []
+    planes_ref = render_planes_reference(tables, cfg, 0, live_segments=live_a)
     torch.cuda.synchronize()
     for c in (0, 1, 2, 6, 7, 8):
         robust(planes[c], planes_ref[c], f"kernel A {PLANE_NAMES[c]}", 1e-3)
@@ -226,7 +518,7 @@ def main() -> int:
     rays = cfg.width * cfg.height * cfg.spp
     mrays = timer.rays_per_second(rays) / 1e6
     busy_ms = device_frame_ms(
-        OfflineRenderer(cfg, texture=tex, scene=scene, camera=cam), FRAMES)
+        OfflineRenderer(cfg, texture=tex, scene=scene, camera=cam).step, FRAMES)
     idle = 1.0 - busy_ms / timer.mean_ms
     phase("main path", f"{timer.mean_ms:.4f} ms/frame; {mrays:.1f} Mrays/s "
           f"(primary, 1280x720 glass_spheres 8 bounces, env "
@@ -235,21 +527,54 @@ def main() -> int:
           f"plain path {main_off:.5%} px off; device busy "
           f"{busy_ms:.4f} ms/frame, idle share {idle:.4f}; GPU {gpu}")
 
-    print(json.dumps({"kernels": [
-        {"name": "megakernel", "route": "cuda",
-         "source": "cpuperformanceraytracer_tpu_torch/csrc/megakernel.cu",
-         "replaces": "cpuperformanceraytracer_tpu/kernels/megakernel.py:251",
-         "launches": launches["render_planes"], "max_abs_err": glass_err,
-         "ms": ms_a, "plain_ms": plain_ms_a},
-        {"name": "env_accumulate", "route": "cuda",
-         "source": "cpuperformanceraytracer_tpu_torch/csrc/env_accumulate.cu",
-         "replaces": "cpuperformanceraytracer_tpu/kernels/megakernel.py:1162",
-         "launches": launches["env_accumulate"], "max_abs_err": err_b,
-         "ms": ms_b, "plain_ms": plain_ms_b},
-    ], "main_path": {"ms_per_frame": timer.mean_ms, "Mrays_per_s": mrays,
-                     "device_busy_ms_per_frame": busy_ms,
-                     "idle_share": idle, "frames": FRAMES,
-                     "warmup": WARMUP}}))
+    # ---- phases 6-8 --------------------------------------------------------
+    c = phase_kernel_c(dev, tables, cfg)
+    d = phase_kernel_d(dev, planes, gi, tex)
+    t = phase_training(dev, scene, cam, tex, cfg, gpu)
+
+    # ---- the kernels' numbers ---------------------------------------------
+    n_px = cfg.width * cfg.height
+    tex_bytes = 3 * 4 * tex.width * tex.height
+    flops_a = sum(live_a) * segment_flops(tables) + n_px * FLOPS_CAMERA
+    bound_a = bound(12 * 4 * n_px, flops_a)
+    # kernel B as timed: 11 planes read, the accumulator read and written,
+    # the texture read once
+    bound_b = bound((11 + 6) * 4 * n_px + tex_bytes, 10 * n_px)
+    rows = [
+        dict(name="megakernel",
+             source="cpuperformanceraytracer_tpu_torch/csrc/megakernel.cu",
+             replaces="cpuperformanceraytracer_tpu/kernels/megakernel.py:251",
+             launches=launches["render_planes"], max_abs_err=glass_err,
+             ms=ms_a, plain_ms=plain_ms_a, bound=bound_a, library_ms=None,
+             launches_by_path={"forward": launches["render_planes"],
+                               "training": t["launches"]["render_planes"]},
+             live_segments=sum(live_a)),
+        dict(name="env_accumulate",
+             source="cpuperformanceraytracer_tpu_torch/csrc/env_accumulate.cu",
+             replaces="cpuperformanceraytracer_tpu/kernels/megakernel.py:1162",
+             launches=launches["env_accumulate"], max_abs_err=err_b,
+             ms=ms_b, plain_ms=plain_ms_b, bound=bound_b, library_ms=None,
+             launches_by_path={"forward": launches["env_accumulate"],
+                               "training": t["launches"]["env_accumulate"]}),
+        dict(name="bwd_tables",
+             source="cpuperformanceraytracer_tpu_torch/csrc/backward.cu",
+             replaces="cpuperformanceraytracer_tpu/kernels/backward.py:230",
+             launches=t["launches"]["bwd_tables"], **c),
+        dict(name="env_backward",
+             source="cpuperformanceraytracer_tpu_torch/csrc/env_backward.cu",
+             replaces="cpuperformanceraytracer_tpu/diff/segsum.py:46",
+             launches=t["launches"]["env_backward"], **d),
+    ]
+    for r in rows:
+        r["route"] = "cuda"
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+    print(json.dumps({"kernels": rows,
+                      "main_path": {"ms_per_frame": timer.mean_ms,
+                                    "Mrays_per_s": mrays,
+                                    "device_busy_ms_per_frame": busy_ms,
+                                    "idle_share": idle, "frames": FRAMES,
+                                    "warmup": WARMUP},
+                      "training_path": t["summary"]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,15 +6,19 @@ block-shape and dispatch knobs (tile_*, exit_granularity, accum_layout,
 frames_per_dispatch, bwd_tile_height, env_tex_shape) have no meaning on
 a GPU and are not carried over.
 
-``backend`` picks the implementation of every kernel on the frame path:
-``"torch"`` runs the plain-torch versions (the only choice without a
-GPU), ``"cuda"`` the hand-written CUDA kernels (tensors on the GPU).
+``backend`` picks the implementation of every kernel: ``"cuda"`` (the
+default) runs the hand-written CUDA kernels on the GPU and raises where
+there is none; ``"torch"`` is the caller's explicit request for the
+plain-torch versions, on the device the caller names (the CPU unless
+told otherwise). ``resolve_device`` maps the two to a device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -44,7 +48,7 @@ class RenderConfig:
     # draw depends on them; the output is identical either way
     early_exit: bool = True
 
-    backend: str = "torch"                     # or "cuda"
+    backend: str = "cuda"                      # or "torch"
 
     def validate(self) -> "RenderConfig":
         """Raise ValueError on invalid values, NotImplementedError on
@@ -82,3 +86,17 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+
+def resolve_device(backend: str, device=None) -> torch.device:
+    """The device a backend runs on: ``"cuda"`` needs a CUDA GPU (it never
+    falls back to the CPU); ``"torch"`` takes ``device``, the CPU if None."""
+    if backend == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("backend 'cuda' needs a CUDA GPU; none is "
+                               "available (use backend 'torch' on the CPU)")
+        device = torch.device(device if device is not None else "cuda")
+        if device.type != "cuda":
+            raise ValueError(f"backend 'cuda' needs a cuda device, got {device}")
+        return device
+    return torch.device(device if device is not None else "cpu")

@@ -1,14 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
-the build takes seconds). Each pointer and the stream pass as
-``c_void_p``; every C entry point returns the ``cudaError_t`` of its
-launch, which ``check`` turns into an exception.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` (all started
+together), and the objects are linked into ONE shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
+build takes seconds). Each pointer and the stream pass as ``c_void_p``;
+every C entry point returns the ``cudaError_t`` of its launch, which
+``check`` turns into an exception.
 
 The library goes to ``<repo>/build/kernels/`` (``build/`` is listed in
-``.gitignore``), named by a hash of the sources and flags, and is built
-at the first use in a process. Nothing is compiled at import time.
+``.gitignore``), named by a hash of the sources, headers and flags, and
+is built at the first use in a process. Nothing is compiled at import
+time.
 
 Flags: ``sm_90a``, ``-O3``, ``--fmad=false`` and no ``--use_fast_math``
 (the default ``-prec-div=true -prec-sqrt=true`` stay): the parity policy
@@ -31,7 +33,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -50,6 +52,21 @@ _SIGNATURES = {
         _P, _F,                           # accum (3, H, W), blend
         _I, _I, _I, _I,                   # sum_into env stochastic flip
         _P,                               # index_out (nullable)
+        _P,                               # stream
+    ],
+    "cprt_bwd_tables": [
+        _P, _I, _P, _I, _P, _I, _P,      # tables and their row counts
+        _P, _P,                           # cot6 (6, H, W), partials (blocks, cells)
+        _I, _I, _I, _I, _I,               # width height frame sample0 bounces
+        _I, _I, _I, _I, _I,               # env_draws env_none roulette zangle jitter
+        _F,                               # aspect
+        _P,                               # stream
+    ],
+    "cprt_env_backward": [
+        _P, _P, _P,                       # g (3, n), idx (n,) int64, mt (3, n)
+        _P, _P, _P,                       # texture r g b
+        _P, _P, _P, _P,                   # cot_mt (3, n), d_r d_g d_b
+        _I,                               # n
         _P,                               # stream
     ],
 }
@@ -78,23 +95,35 @@ def build() -> Build:
     """Compile the library unless a build of these exact sources exists."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     digest = hashlib.sha1()
-    for p in sources:
+    for p in sources + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(p.name.encode() + p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     path = BUILD_DIR / f"libcprt_kernels_{digest.hexdigest()[:16]}.so"
     if path.exists():
         return Build(path, "", 0.0)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, sources)], capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
-    return Build(path, proc.stdout + proc.stderr, seconds)
+    objs = [tmp / f"{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [f"{src.name} ({proc.returncode}):\n{log}"
+              for src, proc, log in zip(sources, procs, logs) if proc.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    so = tmp / path.name
+    link = subprocess.run([nvcc, "-shared", "-o", str(so), *map(str, objs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}\n{link.stderr}")
+    os.replace(so, path)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return Build(path, "".join(logs), time.perf_counter() - t0)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,180 @@
+"""Kernel C: the path-replay adjoint of kernel A, its plain version, and
+the differentiable sample built on kernels A to D.
+
+Replaces ``cpuperformanceraytracer_tpu/kernels/backward.py``:
+``_make_bwd_call`` (the Pallas adjoint kernel) and ``_bwd_tables`` become
+``bwd_tables``, launching ``csrc/backward.cu``; ``_diff_sample_fn`` (a
+``jax.custom_vjp``) becomes ``DiffSample`` (a ``torch.autograd.Function``);
+``render_frame_pallas_diff`` becomes ``render_frame_diff``.
+
+``bwd_tables(tables, cfg, frame, sample0, cot6)`` returns the cotangent of
+every cell of the four scene tables (``d_quad, d_sph, d_mat, d_cam``)
+given the cotangents ``cot6`` (6, H, W) of kernel A's r, g, b and
+miss-throughput planes, for one counter-RNG sample: the JAX
+``_bwd_tables`` contract with ``trained=None``. Its plain version,
+``bwd_tables_reference``, is ``torch.autograd.grad`` of the plain kernel
+A, whose estimator weights are detached (the policy of ``diff/grad.py``).
+
+``DiffSample`` runs kernel A then kernel B (a fresh zero accumulator,
+blend 1 and ``index_out``, which gives the colour exactly and the texel
+index) forward, and kernel D then kernel C backward. ``render_frame_diff``
+packs the tables with the differentiable ``pack_scene``/``pack_camera``,
+so autograd carries the table cotangents on to quad vertices, sphere
+centers, materials and the camera; spp > 1 runs one dispatch per sample.
+
+Not ported: ``derive_trained``, ``bake_base_tables``, ``_BakedTables``,
+``_concretize``, ``_inflate``, ``_bwd_tiles``, ``_fit_bwd_height`` and
+``_bwd_stack_bytes``. They are TPU compile-time specialisation and VMEM
+fitting: kernel C computes the cotangent of every table cell, and
+autograd keeps only what reaches a leaf that requires grad.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cpuperformanceraytracer_tpu_torch.config import resolve_device
+from cpuperformanceraytracer_tpu_torch.kernels._build import check, load_library
+from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
+from cpuperformanceraytracer_tpu_torch.kernels.env_backward import env_backward
+from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
+    _ROULETTE,
+    _aspect,
+    _check_tables,
+    pack_camera,
+    pack_scene,
+    render_planes,
+    render_planes_reference,
+)
+from cpuperformanceraytracer_tpu_torch.texture.texture import Texture
+
+MAX_SEGMENTS = 32       # per-thread replay storage of csrc/backward.cu
+OUT_PLANES = (0, 1, 2, 6, 7, 8)  # kernel A's r, g, b, mt_x, mt_y, mt_z
+
+
+def _require_counter(cfg) -> None:
+    if cfg.rng != "counter":
+        raise ValueError("the adjoint requires rng='counter' (addressable "
+                         "per-sample streams for the replay)")
+
+
+def bwd_tables_reference(tables, cfg, frame: int, sample0: int, cot6):
+    """Plain kernel C: autograd of the plain kernel A's output planes."""
+    _require_counter(cfg)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in tables]
+        planes = render_planes_reference(leaves, cfg, frame, sample0)
+        grads = torch.autograd.grad(planes[list(OUT_PLANES)], leaves, cot6,
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for t, g in zip(tables, grads))
+
+
+def bwd_tables(tables, cfg, frame: int, sample0: int, cot6):
+    """Kernel C wrapper: ``(d_quad, d_sph, d_mat, d_cam)``."""
+    quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
+    _require_counter(cfg)
+    if quad_tbl.device.type == "cpu":
+        return bwd_tables_reference(tables, cfg, frame, sample0, cot6)
+    if quad_tbl.device.type != "cuda":
+        raise ValueError(f"bwd_tables: unsupported device {quad_tbl.device}")
+    if cfg.spp != 1:
+        raise ValueError("bwd_tables: one sample per dispatch (spp=1)")
+    if cfg.bounces + 1 > MAX_SEGMENTS:
+        raise ValueError(f"bwd_tables: at most {MAX_SEGMENTS - 1} bounces")
+    _check_tables(tables)
+    h, w = cfg.height, cfg.width
+    if (cot6.shape != (6, h, w) or cot6.dtype != torch.float32
+            or not cot6.is_contiguous() or cot6.device != quad_tbl.device):
+        raise ValueError(f"bwd_tables: cot6 must be contiguous f32 (6, {h}, "
+                         f"{w}) on {quad_tbl.device}, got {tuple(cot6.shape)} "
+                         f"{cot6.dtype} {cot6.device}")
+    sizes = [t.numel() for t in tables]
+    n_blocks = ((w + 31) // 32) * ((h + 3) // 4)
+    partials = torch.empty((n_blocks, sum(sizes)), dtype=torch.float32,
+                           device=quad_tbl.device)
+    env_draws = cfg.env_mode != "none" and cfg.env_sampling == "stochastic"
+    stream = torch.cuda.current_stream(quad_tbl.device).cuda_stream
+    err = load_library().cprt_bwd_tables(
+        quad_tbl.data_ptr(), quad_tbl.shape[0], sph_tbl.data_ptr(),
+        sph_tbl.shape[0], mat_tbl.data_ptr(), mat_tbl.shape[0],
+        cam_tbl.data_ptr(), cot6.data_ptr(), partials.data_ptr(), w, h,
+        int(frame), int(sample0), cfg.bounces, int(env_draws),
+        int(cfg.env_mode == "none"), _ROULETTE[cfg.roulette],
+        int(cfg.unit_vector_sampler == "zangle"), int(cfg.jitter),
+        ctypes.c_float(_aspect(cfg)), stream)
+    check(err, "bwd_tables")
+    bwd_tables.launches += 1
+    flat = torch.sum(partials, dim=0)
+    return tuple(part.reshape(t.shape)
+                 for part, t in zip(torch.split(flat, sizes), tables))
+
+
+bwd_tables.launches = 0
+
+
+class DiffSample(torch.autograd.Function):
+    """One differentiable sample: (quad, sph, mat, cam, tex_r, tex_g,
+    tex_b) -> colour (3, H, W). ``cfg`` has spp=1; ``frame`` and
+    ``sample0`` are ints; ``tex_shape`` is the texture's (width, height)."""
+
+    @staticmethod
+    def forward(ctx, cfg, frame, sample0, tex_shape, quad, sph, mat, cam,
+                tex_r, tex_g, tex_b):
+        tables = (quad, sph, mat, cam)
+        planes = render_planes(tables, cfg, frame, sample0)
+        env = cfg.env_mode != "none"
+        texture = Texture(tex_r, tex_g, tex_b, *tex_shape) if env else None
+        color = torch.zeros((3, cfg.height, cfg.width), dtype=torch.float32,
+                            device=quad.device)
+        idx = (torch.empty((cfg.height, cfg.width), dtype=torch.int64,
+                           device=quad.device) if env else None)
+        env_accumulate(planes, texture, cfg, color, 1.0, index_out=idx)
+        ctx.save_for_backward(quad, sph, mat, cam, tex_r, tex_g, tex_b)
+        ctx.cfg, ctx.frame, ctx.sample0, ctx.tex_shape = cfg, frame, sample0, tex_shape
+        ctx.idx, ctx.mt = idx, planes[6:9]
+        return color
+
+    @staticmethod
+    def backward(ctx, g):
+        quad, sph, mat, cam, tex_r, tex_g, tex_b = ctx.saved_tensors
+        cfg = ctx.cfg
+        g = g.contiguous()
+        if cfg.env_mode != "none":
+            texture = Texture(tex_r, tex_g, tex_b, *ctx.tex_shape)
+            cot_mt, d_tex = env_backward(g, ctx.idx, ctx.mt, texture)
+        else:
+            cot_mt, d_tex = torch.zeros_like(g), (None, None, None)
+        cot6 = torch.cat([g, cot_mt])
+        d_tables = bwd_tables((quad, sph, mat, cam), cfg, ctx.frame,
+                              ctx.sample0, cot6)
+        return (None, None, None, None, *d_tables, *d_tex)
+
+
+def render_frame_diff(scene, camera, texture, cfg, frame: int,
+                      spp_offset: int = 0) -> torch.Tensor:
+    """Differentiable frame on the CUDA kernels: (3, H, W) colour, the
+    mean of ``cfg.spp`` samples starting at sample ``spp_offset``."""
+    cfg = cfg.validate()
+    if cfg.backend != "cuda":
+        raise ValueError("render_frame_diff runs the CUDA kernels (backend "
+                         f"'cuda'), got backend {cfg.backend!r}")
+    _require_counter(cfg)
+    device = resolve_device("cuda")
+    quad, sph, mat = (t.to(device).contiguous() for t in pack_scene(scene))
+    cam = pack_camera(camera, cfg).to(device).contiguous()
+    if texture is not None and cfg.env_mode != "none":
+        tex = tuple(t.to(device).contiguous() for t in texture[:3])
+        tex_shape = (texture.width, texture.height)
+    else:
+        tex = (torch.zeros(1, device=device),) * 3
+        tex_shape = (0, 0)
+    one = cfg.replace(spp=1)
+    acc = None
+    for s in range(cfg.spp):
+        color = DiffSample.apply(one, int(frame), int(spp_offset) + s,
+                                 tex_shape, quad, sph, mat, cam, *tex)
+        acc = color if acc is None else acc + color
+    return acc * (1.0 / cfg.spp)

@@ -15,7 +15,8 @@ updates the planar (3, H, W) accumulator IN PLACE:
 
 With env_mode "none" the ambient was already added by kernel A and
 ``color = rgb``. ``index_out`` (optional int64 (H, W)) receives the
-clamped flat texel index, for parity checks.
+clamped flat texel index (the diff path's backward reads it).
+``env_color_reference`` is the functional form of the same resolve.
 
 ``env_accumulate`` is the wrapper: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel (counted in
@@ -36,21 +37,28 @@ from cpuperformanceraytracer_tpu_torch.texture.texture import (
 )
 
 
+def env_color_reference(planes, texture, cfg):
+    """The resolved colour of kernel A's planes, functionally: returns
+    ((3, H, W) colour, flat texel index or None). Nothing is updated in
+    place, so autograd differentiates through it to the planes and the
+    texel planes (the gather): the plain forward of the diff path."""
+    r, g, b = planes[0], planes[1], planes[2]
+    if cfg.env_mode == "none":
+        return torch.stack([r, g, b]), None
+    idx = env_texel_flat_index(texture, Vec3(*planes[3:6]), cfg, planes[9],
+                               planes[10])
+    idx = torch.clamp(idx, 0, texture.width * texture.height - 1)
+    env = gather_texels(texture, idx)
+    return torch.stack([r + env.x * planes[6], g + env.y * planes[7],
+                        b + env.z * planes[8]]), idx
+
+
 def env_accumulate_reference(planes, texture, cfg, accum, blend: float = 1.0,
                              sum_into: bool = False, index_out=None):
     """Plain-torch kernel B (same contract as ``env_accumulate``)."""
-    r, g, b = planes[0], planes[1], planes[2]
-    if cfg.env_mode == "none":
-        color = (r, g, b)
-    else:
-        idx = env_texel_flat_index(texture, Vec3(*planes[3:6]), cfg,
-                                   planes[9], planes[10])
-        idx = torch.clamp(idx, 0, texture.width * texture.height - 1)
-        if index_out is not None:
-            index_out.copy_(idx)
-        env = gather_texels(texture, idx)
-        color = (r + env.x * planes[6], g + env.y * planes[7],
-                 b + env.z * planes[8])
+    color, idx = env_color_reference(planes, texture, cfg)
+    if index_out is not None and idx is not None:
+        index_out.copy_(idx)
     for c in range(3):
         if sum_into:
             accum[c] += color[c]

@@ -96,12 +96,13 @@ def pack_scene(scene):
 
 
 def pack_camera(camera, cfg) -> torch.Tensor:
-    """(8,) camera table; the ambient rides along for env_mode 'none'."""
+    """(8,) camera table; the ambient rides along for env_mode 'none'. The
+    ambient is filled on the camera's device: a copy from host memory
+    would synchronise the stream on every training step."""
     p = camera.position
-    dev = camera.distance.device
-    amb = torch.tensor(cfg.ambient, dtype=torch.float32, device=dev)
-    return torch.cat([torch.stack([p.x, p.y, p.z, camera.distance,
-                                   camera.forward_z]), amb])
+    amb = [camera.distance.new_full((), a) for a in cfg.ambient]
+    return torch.stack([p.x, p.y, p.z, camera.distance, camera.forward_z,
+                        *amb])
 
 
 def pack_tables(scene, camera, cfg, device):
@@ -120,12 +121,14 @@ def _inv_spp(cfg) -> float:
     return float(np.float32(1.0 / cfg.spp))
 
 
-def render_planes_reference(tables, cfg, frame: int,
-                            sample0: int = 0) -> torch.Tensor:
+def render_planes_reference(tables, cfg, frame: int, sample0: int = 0,
+                            live_segments=None) -> torch.Tensor:
     """Plain-torch kernel A: the per-object blend chain of the TPU
     kernel, vectorised over all pixels, every segment run with dead
     paths masked (the kernel's early exit does not change the output).
-    Returns (12, H, W) f32 on the tables' device."""
+    Returns (12, H, W) f32 on the tables' device. A list passed as
+    ``live_segments`` receives the number of live paths at the start of
+    each segment (the segments the kernel runs)."""
     quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
     dev = quad_tbl.device
     h, w = cfg.height, cfg.width
@@ -235,7 +238,9 @@ def render_planes_reference(tables, cfg, frame: int,
         diff_chance = torch.clamp(1.0 - (spec_chance + refr_chance), min=0.0)
         ray_prob = torch.where(do_spec, spec_chance,
                                torch.where(do_refr, refr_chance, diff_chance))
-        inv_prob = 1.0 / torch.clamp(ray_prob, min=MIN_RAY_PROBABILITY)
+        # estimator weights, not physics: detached, as the JAX bounce body
+        # (megakernel.py:590-597, :650-652) and the policy of diff/grad.py
+        inv_prob = 1.0 / torch.clamp(ray_prob, min=MIN_RAY_PROBABILITY).detach()
 
         nudge = torch.where(do_refr, -RAY_POS_NORMAL_NUDGE,
                             RAY_POS_NORMAL_NUDGE)
@@ -263,7 +268,7 @@ def render_planes_reference(tables, cfg, frame: int,
                 new_thr.y, new_thr.z)), 0.0, 1.0)
             rr, rng = rng.next01()
             terminated = rr > p
-            boost = 1.0 / torch.clamp(p, min=MIN_RAY_PROBABILITY)
+            boost = 1.0 / torch.clamp(p, min=MIN_RAY_PROBABILITY).detach()
             new_thr = where3(terminated, new_thr, new_thr * boost)
             if cfg.roulette == "terminate":
                 update = update & ~terminated
@@ -295,6 +300,8 @@ def render_planes_reference(tables, cfg, frame: int,
                  miss_dir=Vec3(zeros, zeros, ones),
                  miss_thr=Vec3(zeros, zeros, zeros), jr=zeros, jc=zeros)
         for _ in range(cfg.bounces + 1):
+            if live_segments is not None:
+                live_segments.append(int(s["alive"].sum()))
             bounce(s)
         return s
 

@@ -6,8 +6,8 @@ frames into a scratch accumulator, then ``num_frames`` progressive
 frames timed on the host clock between device synchronisations, ms/frame
 and primary rays/s (W*H*spp per frame).
 
-``backend="cuda"`` runs the CUDA kernels and needs a GPU: without one
-the constructor raises, it never falls back to the CPU.
+``backend="cuda"`` (the default) runs the CUDA kernels and needs a GPU:
+without one the constructor raises, it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from cpuperformanceraytracer_tpu_torch.config import resolve_device
 from cpuperformanceraytracer_tpu_torch.io.image import write_bmp, write_png
 from cpuperformanceraytracer_tpu_torch.render.frame import (
     make_frame_fn,
@@ -33,18 +34,6 @@ from cpuperformanceraytracer_tpu_torch.utils.timing import FrameTimer
 SYNC_EVERY = 64
 
 
-def _resolve_device(backend: str, device) -> torch.device:
-    if backend == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("backend 'cuda' needs a CUDA GPU; none is "
-                               "available (use backend 'torch' on the CPU)")
-        device = torch.device(device if device is not None else "cuda")
-        if device.type != "cuda":
-            raise ValueError(f"backend 'cuda' needs a cuda device, got {device}")
-        return device
-    return torch.device(device if device is not None else "cpu")
-
-
 class OfflineRenderer:
     """Progressive offline renderer over a scene preset (or a given
     scene and camera) on one device."""
@@ -52,7 +41,7 @@ class OfflineRenderer:
     def __init__(self, cfg, texture: Optional[Texture] = None, scene=None,
                  camera=None, device=None):
         self.cfg = cfg.validate()
-        self.device = _resolve_device(self.cfg.backend, device)
+        self.device = resolve_device(self.cfg.backend, device)
         if scene is None or camera is None:
             scene, camera = scene_by_name(self.cfg.scene, device=self.device)
         if self.cfg.env_mode != "none":

@@ -126,10 +126,11 @@ def test_cuda_backend_without_gpu_raises():
 
 def test_env_without_texture_and_wang_multisample_env_raise():
     with pytest.raises(ValueError, match="needs a texture"):
-        OfflineRenderer(RenderConfig(width=32, height=8))
+        OfflineRenderer(RenderConfig(width=32, height=8, backend="torch"))
     tex = texture_from(texture_from_array(gradient_sky(16, 8)))
     with pytest.raises(NotImplementedError, match="counter"):
-        OfflineRenderer(RenderConfig(width=32, height=8, spp=2), texture=tex)
+        OfflineRenderer(RenderConfig(width=32, height=8, spp=2,
+                                     backend="torch"), texture=tex)
 
 
 def test_counter_multisample_env_frame():
@@ -137,7 +138,7 @@ def test_counter_multisample_env_frame():
     kernel B, divided once; equals the mean of single-sample frames."""
     tex = texture_from(texture_from_array(gradient_sky(16, 8)))
     kw = dict(width=32, height=8, bounces=2, rng="counter", num_frames=1,
-              warmup_frames=0)
+              warmup_frames=0, backend="torch")
     r = OfflineRenderer(RenderConfig(spp=3, **kw), texture=tex)
     r.step()
     one = RenderConfig(spp=1, **kw)
@@ -154,7 +155,7 @@ def test_cli_render(tmp_path, capsys):
     out = tmp_path / "img.png"
     rc = cli.main(["render", "--scene", "cornell_box", "--env", "none",
                    "--width", "32", "--height", "16", "--frames", "2",
-                   "--bounces", "1", "-o", str(out)])
+                   "--bounces", "1", "--backend", "torch", "-o", str(out)])
     assert rc == 0 and out.stat().st_size > 0
     line = capsys.readouterr().out.strip()
     assert re.fullmatch(r"[\d.]+ ms/frame; [\d.]+ Mrays/s; wrote .+", line)

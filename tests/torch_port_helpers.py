@@ -38,11 +38,13 @@ def jax_cfg(**kw):
 
 
 def port_cfg(jcfg, **kw):
-    """The port's RenderConfig with every field the two share."""
+    """The port's RenderConfig with every field the two share, on the
+    plain-torch backend (the CPU tests ask for it explicitly)."""
     from cpuperformanceraytracer_tpu_torch.config import RenderConfig
 
     names = {f.name for f in dataclasses.fields(RenderConfig)} - {"backend"}
     shared = {n: getattr(jcfg, n) for n in names}
+    shared["backend"] = "torch"
     shared.update(kw)
     return RenderConfig(**shared)
 
@@ -67,3 +69,30 @@ def assert_robust(a, b, rel_mean=1e-2, frac=0.02, what=""):
         f"{what}: means {a.mean():.6g} vs {b.mean():.6g}")
     off = np.mean(np.abs(a - b) > 1e-3)
     assert off < frac, f"{what}: {off:.4%} of pixels differ by > 1e-3"
+
+
+def beer_scene(builder, material, make_camera, **device):
+    """The decision-stable scene with a geometry gradient, built by either
+    package's ``SceneBuilder`` (``device=`` for the port's): the grey
+    floor quad and one glass sphere that every path refracts through
+    (refraction chance 1, no specular), so Beer absorption carries the
+    sphere and camera gradients and no lottery decision can flip."""
+    b = builder(translation=(0.0, 0.0, 10.0))
+    grey = b.add_material(material(albedo=(0.6, 0.55, 0.5)))
+    glass = b.add_material(material(
+        albedo=(0.9, 0.9, 0.9), specular_chance=0.0, refraction_chance=1.0,
+        ior=1.5, refraction_color=(0.5, 0.2, 0.1)))
+    b.add_quad((-25.0, -12.45, 15.0), (25.0, -12.45, 15.0),
+               (25.0, -12.45, -15.0), (-25.0, -12.45, -15.0), grey)
+    b.add_sphere((0.0, -2.0, 0.0), 6.0, glass)
+    cam = make_camera(position=(0.0, 0.0, 40.0), fov_degrees=90.0,
+                      forward_z=-1.0, **device)
+    return b.build(**device), cam
+
+
+def port_beer_scene(device="cpu"):
+    from cpuperformanceraytracer_tpu_torch.scene.builder import SceneBuilder
+    from cpuperformanceraytracer_tpu_torch.scene.camera import make_camera
+    from cpuperformanceraytracer_tpu_torch.scene.types import Material
+
+    return beer_scene(SceneBuilder, Material, make_camera, device=device)
