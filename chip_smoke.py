@@ -36,8 +36,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
    (a lottery flip on a few pixels moves a sum over all pixels);
 7. kernel D (env cotangents + texel scatter) vs its plain version at
    1280x720 pixels and 512x256 texels, on kernel B's indices of phase 4:
-   cot_mt exactly equal, each texel's sum within 4 * 2^-23 * sum|v| of a
-   float64 index_add_;
+   cot_mt exactly equal, each texel's sum of k values within
+   (k - 1) * 2^-24 * sum|v| (at least 8 * 2^-24 * sum|v|) of a float64
+   index_add_;
 8. the training path: fwd_bwd_benchmark(backend="cuda") at the bench
    workload (counter RNG, params albedo + 0.05, sphere centers + 0.1 and
    every env texel), 2 warmup + 64 timed steps in 2 spans; kernels C and
@@ -45,7 +46,32 @@ Phases, one line each; any failure raises and the exit code is not 0:
    finite and within 2e-2 relative L2 of the plain path's on the card;
    the device time per step with the stream kept full and the idle
    share; then 8 Adam steps of adam_inverse_render on the albedo, whose
-   loss must fall.
+   loss must fall;
+9. kernel E (env lookup + texel fetch) vs its plain version on phase 3's
+   720p planes, for all six env_mode x env_sampling pairs (equirect
+   gradient_sky(512, 256); cubemap six gradient_sky(256, 256) faces):
+   taps equal on >= 99.9% of pixels, the rows equal (rtol 1e-6) where
+   they agree; gather_texels bit-equal to torch indexing;
+10. kernel F (combine + accumulate) vs its plain version on seeded
+   1920x1080 inputs at spp 1 and 16: allclose rtol 1e-6;
+11. kernel G (display transform) vs its plain version on seeded
+   accumulators with 0, 1e-12, 1e-3 and 50 in them and on phase 5's
+   accumulator: f32 within rtol 1e-5, u8 equal on >= 99.99% of values
+   and never off by more than 1;
+12. the textured path: OfflineRenderer(backend="cuda") at textured_1080
+   (1920x1080, glass_spheres, 16 spp, 8 bounces, counter RNG, equirect
+   stochastic) with a gradient_sky(2048, 1024) env, 2 warmup + 16 timed
+   frames; kernels A and E launch 16 times a frame, F once; kernel E vs
+   its plain version on one frame's 16 samples at these shapes (1080p
+   planes, the 2k env), by phase 9's rules; after 2 frames the
+   accumulator agrees with the plain path's on the card (means within
+   1e-2, under 1% of pixels off by > 1e-3); the device
+   time per frame with the stream kept full and the idle share; one
+   720p frame each of bilinear equirect and cubemap nearest through the
+   same route, checked the same way; a PNG written through kernel G
+   (one launch);
+13. checkpoint/resume on the card: 8 textured_1080 frames saved every 4,
+   a new renderer resumed for 4 more, bit-equal to 12 frames in one run.
 
 Then one JSON line with each kernel's numbers (times, launches on the
 main paths, and the bound: the larger of its bytes over 3.35 TB/s and
@@ -388,6 +414,313 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
                    warmup_steps=2)
     return {"launches": launches, "summary": summary}
 
+TEXTURED_FRAMES = 16            # timed textured_1080 frames (phase 12)
+OUT_DIR = "build/chip_smoke"    # the PNG and the checkpoint (gitignored)
+
+
+def cubemap_texture(dev, size: int):
+    """Six gradient_sky(size, size) faces stacked: a cubemap fixture."""
+    import numpy as np
+
+    from cpuperformanceraytracer_tpu_torch.texture.procedural import gradient_sky
+    from cpuperformanceraytracer_tpu_torch.texture.texture import texture_from_array
+
+    return texture_from_array(np.concatenate(
+        [gradient_sky(size, size, seed=i) for i in range(6)]), dev)
+
+
+def phase_kernel_e(dev, planes, cfg, tex) -> float:
+    """Phase 9: kernel E vs its plain version; returns the max abs error
+    where the taps agree."""
+    from cpuperformanceraytracer_tpu_torch.kernels.env_gather import (
+        env_lookup,
+        env_lookup_reference,
+        gather_texels,
+        gather_texels_reference,
+    )
+
+    textures = {"equirect": tex, "cubemap": cubemap_texture(dev, 256)}
+    n = cfg.width * cfg.height
+    worst_share, err, notes = 1.0, 0.0, []
+    for mode in ("equirect", "cubemap"):
+        for sampling in ("stochastic", "nearest", "bilinear"):
+            c = cfg.replace(env_mode=mode, env_sampling=sampling)
+            taps = torch.empty((n, 4), dtype=torch.int64, device=dev)
+            taps_w = torch.empty_like(taps)
+            got = env_lookup(planes, textures[mode], c, taps_out=taps)
+            want = env_lookup_reference(planes, textures[mode], c,
+                                        taps_out=taps_w)
+            torch.cuda.synchronize()
+            same = (taps == taps_w).all(-1)
+            share = same.double().mean().item()
+            if share < 0.999:
+                raise AssertionError(f"kernel E {mode} {sampling}: taps equal "
+                                     f"on {share:.4%}")
+            torch.testing.assert_close(
+                got[same], want[same], rtol=1e-6, atol=0,
+                msg=lambda m: f"kernel E {mode} {sampling}: {m}")
+            err = max(err, (got[same] - want[same]).abs().max().item())
+            worst_share = min(worst_share, share)
+            notes.append(f"{mode}/{sampling} {share:.5%}")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for dtype in (torch.int32, torch.int64):
+        rows = torch.randint(-8, tex.height + 8, (n,), device=dev,
+                             generator=gen, dtype=dtype)
+        cols = torch.randint(-8, tex.width + 8, (n,), device=dev,
+                             generator=gen, dtype=dtype)
+        if not torch.equal(gather_texels(tex, rows, cols),
+                           gather_texels_reference(tex, rows, cols)):
+            raise AssertionError(f"gather_texels {dtype} differs from indexing")
+    phase("kernel E", f"720p glass planes, taps equal on "
+          + ", ".join(notes) + f"; rows rtol 1e-6 where equal (max abs err "
+          f"{err:.3g}); gather_texels bit-equal (int32, int64)")
+    return err
+
+
+def phase_kernel_f(dev) -> float:
+    """Phase 10: kernel F vs its plain version at 1920x1080."""
+    from cpuperformanceraytracer_tpu_torch.kernels.combine import (
+        combine_accumulate,
+        combine_accumulate_reference,
+    )
+
+    h, w = 1080, 1920
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err = 0.0
+    for spp in (1, 16):
+        planes = torch.rand((spp, 12, h, w), device=dev, generator=gen)
+        e4 = torch.rand((spp, h * w, 4), device=dev, generator=gen) * 4.0
+        acc = torch.rand((3, h, w), device=dev, generator=gen)
+        args = ((e4[0], planes[0, 0:3], planes[0, 6:9]) if spp == 1
+                else (e4, planes[:, 0:3], planes[:, 6:9]))
+        got = combine_accumulate(*args, acc.clone(), 0.25)
+        want = combine_accumulate_reference(*args, acc.clone(), 0.25)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0,
+                                   msg=lambda m: f"kernel F spp {spp}: {m}")
+        err = max(err, (got - want).abs().max().item())
+        del planes, e4
+    phase("kernel F", f"1920x1080 spp 1 and 16 allclose rtol 1e-6 (max abs "
+          f"err {err:.3g})")
+    return err
+
+
+def phase_kernel_g(dev, accum720) -> float:
+    """Phase 11: kernel G vs its plain version, in f32 and in u8."""
+    from cpuperformanceraytracer_tpu_torch.core.color import to_u8
+    from cpuperformanceraytracer_tpu_torch.core.vecmath import Vec3
+    from cpuperformanceraytracer_tpu_torch.kernels.tonemap import (
+        tonemap,
+        tonemap_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    seeded = torch.rand((3, 1080, 1920), device=dev, generator=gen) * 8.0
+    seeded[:, 0, :4] = torch.tensor([0.0, 1e-12, 1e-3, 50.0], device=dev)
+    err, worst_eq, worst_d = 0.0, 1.0, 0
+    for name, acc in (("seeded 1080p", seeded), ("main path 720p", accum720)):
+        got, want = tonemap(acc, 1.0), tonemap_reference(acc, 1.0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0,
+                                   msg=lambda m: f"kernel G {name}: {m}")
+        d = (to_u8(Vec3(*got)).int() - to_u8(Vec3(*want)).int()).abs()
+        eq = (d == 0).double().mean().item()
+        if eq < 0.9999 or d.max().item() > 1:
+            raise AssertionError(f"kernel G {name}: u8 equal on {eq:.5%}, "
+                                 f"max off {d.max().item()}")
+        err = max(err, (got - want).abs().max().item())
+        worst_eq, worst_d = min(worst_eq, eq), max(worst_d, d.max().item())
+    phase("kernel G", f"f32 rtol 1e-5 (max abs err {err:.3g}); u8 equal on "
+          f">= {worst_eq:.5%} of values, max off {worst_d}")
+    return err
+
+
+def phase_textured(dev, gpu) -> dict:
+    """Phase 12: the textured multi-sample path through kernels A, E, F
+    and the display through G; the timings of E, F and G at its shapes."""
+    import os
+
+    from cpuperformanceraytracer_tpu_torch.config import BENCH_CONFIGS
+    from cpuperformanceraytracer_tpu_torch.kernels.combine import (
+        combine_accumulate,
+        combine_accumulate_reference,
+    )
+    from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
+    from cpuperformanceraytracer_tpu_torch.kernels.env_gather import (
+        env_lookup,
+        env_lookup_reference,
+    )
+    from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
+        pack_tables,
+        render_planes,
+    )
+    from cpuperformanceraytracer_tpu_torch.kernels.tonemap import (
+        tonemap,
+        tonemap_reference,
+    )
+    from cpuperformanceraytracer_tpu_torch.render.driver import OfflineRenderer
+    from cpuperformanceraytracer_tpu_torch.render.frame import frame_blend
+    from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
+    from cpuperformanceraytracer_tpu_torch.texture.procedural import gradient_sky
+    from cpuperformanceraytracer_tpu_torch.texture.texture import texture_from_array
+
+    cfg = BENCH_CONFIGS["textured_1080"].replace(
+        warmup_frames=WARMUP, num_frames=TEXTURED_FRAMES, backend="cuda")
+    tex = texture_from_array(gradient_sky(2048, 1024), dev)
+    scene, cam = scene_by_name(cfg.scene, device=dev)
+    kernels = (render_planes, env_lookup, combine_accumulate, env_accumulate)
+    r = OfflineRenderer(cfg, texture=tex, scene=scene, camera=cam, silent=True)
+    for k in kernels:
+        k.launches = 0
+    timer = r.run()
+    launches = {k.__name__: k.launches for k in kernels}
+    frames = WARMUP + TEXTURED_FRAMES
+    expect = {"render_planes": cfg.spp * frames, "env_lookup": cfg.spp * frames,
+              "combine_accumulate": frames, "env_accumulate": 0}
+    if launches != expect:
+        raise AssertionError(f"textured launches {launches}, expected {expect}")
+    if not torch.isfinite(r.accum).all() or r.accum.mean().item() <= 0.0:
+        raise AssertionError("textured path: accumulator not finite or zero")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tonemap.launches = 0
+    r.write_image(os.path.join(OUT_DIR, "textured_1080.png"))
+    if tonemap.launches != 1:
+        raise AssertionError(f"image write launched G {tonemap.launches} times")
+    launches["tonemap"] = tonemap.launches
+    img_mean = float(r.image_u8().mean())
+
+    offs = {}
+    two = cfg.replace(num_frames=2, warmup_frames=0)
+    checks = (("textured_1080", two, tex, 2),
+              ("720p bilinear", two.replace(width=1280, height=720,
+                                            env_sampling="bilinear"), tex, 1),
+              ("720p cubemap nearest", two.replace(
+                  width=1280, height=720, env_mode="cubemap",
+                  env_sampling="nearest"), cubemap_texture(dev, 256), 1))
+    for name, c, t, n in checks:
+        a = OfflineRenderer(c, texture=t, scene=scene, camera=cam, silent=True)
+        b = OfflineRenderer(c.replace(backend="torch"), texture=t, scene=scene,
+                            camera=cam, device=dev, silent=True)
+        for _ in range(n):
+            a.step()
+            b.step()
+        offs[name] = max(robust(a.accum[ch], b.accum[ch],
+                                f"{name} channel {ch}", 1e-2)
+                         for ch in range(3))
+        del a, b
+    rays = cfg.width * cfg.height * cfg.spp
+    mrays = timer.rays_per_second(rays) / 1e6
+    busy_ms = device_frame_ms(OfflineRenderer(
+        cfg, texture=tex, scene=scene, camera=cam, silent=True).step, 4)
+    idle = 1.0 - busy_ms / timer.mean_ms
+
+    # the kernels alone at this path's shapes: one frame's 16 samples
+    one = cfg.replace(spp=1)
+    tables = pack_tables(scene, cam, cfg, dev)
+    n_px = cfg.width * cfg.height
+    planes = torch.empty((cfg.spp, 12, cfg.height, cfg.width), device=dev)
+    e4 = torch.empty((cfg.spp, n_px, 4), device=dev)
+    taps = torch.empty((n_px, 4), dtype=torch.int64, device=dev)
+    taps_s, taps_w = torch.empty_like(taps), torch.empty_like(taps)
+    # kernel E vs its plain version at this path's shapes (1080p planes, a
+    # 2048x1024 env): every sample of one frame, phase 9's rules
+    share_e, err_e = 1.0, 0.0
+    for s_ in range(cfg.spp):
+        render_planes(tables, one, 3, sample0=s_, out=planes[s_])
+        env_lookup(planes[s_], tex, cfg, out=e4[s_],
+                   taps_out=taps if s_ == 0 else taps_s)
+        want = env_lookup_reference(planes[s_], tex, cfg, taps_out=taps_w)
+        same = ((taps if s_ == 0 else taps_s) == taps_w).all(-1)
+        share = same.double().mean().item()
+        if share < 0.999:
+            raise AssertionError(f"kernel E textured_1080 sample {s_}: taps "
+                                 f"equal on {share:.4%}")
+        torch.testing.assert_close(
+            e4[s_][same], want[same], rtol=1e-6, atol=0,
+            msg=lambda m: f"kernel E textured_1080 sample {s_}: {m}")
+        share_e = min(share_e, share)
+        err_e = max(err_e, (e4[s_][same] - want[same]).abs().max().item())
+        del want, same
+    del taps_s, taps_w
+    acc = r.accum.clone()
+    ms_a = cuda_ms(lambda: render_planes(tables, one, 3, out=planes[0]), 20)
+    ms_e = cuda_ms(lambda: env_lookup(planes[0], tex, cfg, out=e4[0]), 100)
+    plain_ms_e = cuda_ms(lambda: env_lookup_reference(planes[0], tex, cfg), 5)
+    table = torch.stack([tex.r, tex.g, tex.b, torch.zeros_like(tex.r)], -1)
+    flat = taps[:, 0].contiguous()
+    lib_ms_e = cuda_ms(lambda: table.index_select(0, flat), 100)
+    args = (e4, planes[:, 0:3], planes[:, 6:9], acc, frame_blend(3))
+    ms_f = cuda_ms(lambda: combine_accumulate(*args), 50)
+    plain_ms_f = cuda_ms(lambda: combine_accumulate_reference(*args), 3)
+    ms_g = cuda_ms(lambda: tonemap(acc), 200)
+    plain_ms_g = cuda_ms(lambda: tonemap_reference(acc), 20)
+    texels = torch.unique(flat).numel()
+    # E: 5 planes read, one RGBX row written, the texels it touches read
+    bound_e = bound(n_px * (5 * 4 + 16) + 12 * texels, 40 * n_px)
+    # F: per sample an RGBX row and 6 planes read; the accumulator read
+    # and written
+    bound_f = bound(n_px * (cfg.spp * (16 + 6 * 4) + 2 * 12),
+                    n_px * (cfg.spp * 9 + 12))
+    bound_g = bound(n_px * 2 * 12, n_px * 3 * 20)
+    phase("textured path", f"{timer.mean_ms:.4f} ms/frame; {mrays:.1f} "
+          f"Mrays/s (primary, textured_1080: 1920x1080 glass_spheres 16 spp "
+          f"8 bounces, counter RNG, env gradient_sky(2048,1024)); launches "
+          f"{launches}; image mean {img_mean:.2f}; vs plain path "
+          + ", ".join(f"{k} {v:.5%} px off" for k, v in offs.items())
+          + f"; device busy {busy_ms:.4f} ms/frame, idle share {idle:.4f}; "
+          f"E vs plain on 16 samples: taps equal on >= {share_e:.5%}, rows "
+          f"max abs err {err_e:.3g} where equal; "
+          f"A {ms_a:.4f} ms a sample; E {ms_e:.4f} ms (plain {plain_ms_e:.3f}, index_select "
+          f"{lib_ms_e:.4f}, bound {bound_e[0]:.4f}, {texels} texels), F "
+          f"{ms_f:.4f} ms (plain {plain_ms_f:.3f}, bound {bound_f[0]:.4f}), "
+          f"G {ms_g:.4f} ms (plain {plain_ms_g:.4f}, bound {bound_g[0]:.4f}); "
+          f"GPU {gpu}")
+    summary = dict(ms_per_frame=timer.mean_ms, Mrays_per_s=mrays,
+                   device_busy_ms_per_frame=busy_ms, idle_share=idle,
+                   frames=TEXTURED_FRAMES, warmup=WARMUP,
+                   megakernel_ms_per_sample=ms_a,
+                   px_off_vs_plain=offs, image_mean=img_mean)
+    return dict(launches=launches, summary=summary,
+                e=dict(ms=ms_e, plain_ms=plain_ms_e, library_ms=lib_ms_e,
+                       bound=bound_e), err_e=err_e,
+                f=dict(ms=ms_f, plain_ms=plain_ms_f, library_ms=None,
+                       bound=bound_f),
+                g=dict(ms=ms_g, plain_ms=plain_ms_g, library_ms=None,
+                       bound=bound_g))
+
+
+def phase_checkpoint(dev) -> None:
+    """Phase 13: 8 frames saved every 4, resumed for 4 more in a new
+    renderer: bit-equal to 12 frames in one run."""
+    import os
+
+    from cpuperformanceraytracer_tpu_torch.config import BENCH_CONFIGS
+    from cpuperformanceraytracer_tpu_torch.render.driver import OfflineRenderer
+    from cpuperformanceraytracer_tpu_torch.texture.procedural import gradient_sky
+    from cpuperformanceraytracer_tpu_torch.texture.texture import texture_from_array
+
+    cfg = BENCH_CONFIGS["textured_1080"].replace(
+        warmup_frames=0, num_frames=8, backend="cuda")
+    tex = texture_from_array(gradient_sky(2048, 1024), dev)
+    path = os.path.join(OUT_DIR, "textured_1080.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    OfflineRenderer(cfg, texture=tex, silent=True).run(path, 4)
+    resumed = OfflineRenderer(cfg.replace(num_frames=4), texture=tex,
+                              silent=True)
+    resumed.resume(path)
+    if resumed.frame != 8:
+        raise AssertionError(f"resumed at frame {resumed.frame}, not 8")
+    resumed.run()
+    whole = OfflineRenderer(cfg.replace(num_frames=12), texture=tex,
+                            silent=True)
+    whole.run()
+    if not torch.equal(resumed.accum, whole.accum):
+        diff = (resumed.accum - whole.accum).abs().max().item()
+        raise AssertionError(f"resumed run differs from one run by {diff}")
+    phase("checkpoint", "textured_1080: 8 frames saved every 4 + 4 resumed "
+          "in a new renderer == 12 frames in one run, bit for bit")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -494,7 +827,7 @@ def main() -> int:
           f"{plain_ms_b:.4f} ms")
 
     # ---- phase 5: the main path -----------------------------------------
-    r = OfflineRenderer(cfg, texture=tex, scene=scene, camera=cam)
+    r = OfflineRenderer(cfg, texture=tex, scene=scene, camera=cam, silent=True)
     render_planes.launches = 0
     env_accumulate.launches = 0
     timer = r.run()
@@ -510,7 +843,7 @@ def main() -> int:
         raise AssertionError(f"bad image: shape {img.shape}, accum mean "
                              f"{accum.mean().item()}")
     plain = OfflineRenderer(cfg.replace(backend="torch"), texture=tex,
-                            scene=scene, camera=cam, device=dev)
+                            scene=scene, camera=cam, device=dev, silent=True)
     for _ in range(FRAMES):
         plain.step()
     main_off = max(robust(accum[c], plain.accum[c], f"main path channel {c}",
@@ -518,7 +851,8 @@ def main() -> int:
     rays = cfg.width * cfg.height * cfg.spp
     mrays = timer.rays_per_second(rays) / 1e6
     busy_ms = device_frame_ms(
-        OfflineRenderer(cfg, texture=tex, scene=scene, camera=cam).step, FRAMES)
+        OfflineRenderer(cfg, texture=tex, scene=scene, camera=cam,
+                        silent=True).step, FRAMES)
     idle = 1.0 - busy_ms / timer.mean_ms
     phase("main path", f"{timer.mean_ms:.4f} ms/frame; {mrays:.1f} Mrays/s "
           f"(primary, 1280x720 glass_spheres 8 bounces, env "
@@ -531,6 +865,13 @@ def main() -> int:
     c = phase_kernel_c(dev, tables, cfg)
     d = phase_kernel_d(dev, planes, gi, tex)
     t = phase_training(dev, scene, cam, tex, cfg, gpu)
+
+    # ---- phases 9-13: the textured multi-sample path ---------------------
+    err_e = phase_kernel_e(dev, planes, cfg, tex)
+    err_f = phase_kernel_f(dev)
+    err_g = phase_kernel_g(dev, accum)
+    x = phase_textured(dev, gpu)
+    phase_checkpoint(dev)
 
     # ---- the kernels' numbers ---------------------------------------------
     n_px = cfg.width * cfg.height
@@ -564,6 +905,22 @@ def main() -> int:
              source="cpuperformanceraytracer_tpu_torch/csrc/env_backward.cu",
              replaces="cpuperformanceraytracer_tpu/diff/segsum.py:46",
              launches=t["launches"]["env_backward"], **d),
+        dict(name="env_gather",
+             source="cpuperformanceraytracer_tpu_torch/csrc/env_gather.cu",
+             replaces="cpuperformanceraytracer_tpu/kernels/env_gather.py:102",
+             launches=x["launches"]["env_lookup"],
+             max_abs_err=max(err_e, x["err_e"]),
+             **x["e"]),
+        dict(name="combine",
+             source="cpuperformanceraytracer_tpu_torch/csrc/combine.cu",
+             replaces="cpuperformanceraytracer_tpu/kernels/combine.py:148",
+             launches=x["launches"]["combine_accumulate"], max_abs_err=err_f,
+             **x["f"]),
+        dict(name="tonemap",
+             source="cpuperformanceraytracer_tpu_torch/csrc/tonemap.cu",
+             replaces="cpuperformanceraytracer_tpu/kernels/tonemap.py:46",
+             launches=x["launches"]["tonemap"], max_abs_err=err_g,
+             **x["g"]),
     ]
     for r in rows:
         r["route"] = "cuda"
@@ -574,7 +931,8 @@ def main() -> int:
                                     "device_busy_ms_per_frame": busy_ms,
                                     "idle_share": idle, "frames": FRAMES,
                                     "warmup": WARMUP},
-                      "training_path": t["summary"]}))
+                      "training_path": t["summary"],
+                      "textured_path": x["summary"]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

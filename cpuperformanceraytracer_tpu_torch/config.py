@@ -4,7 +4,9 @@ Field names and defaults follow ``cpuperformanceraytracer_tpu.config``
 so a config can be compared field by field with the JAX one. The TPU
 block-shape and dispatch knobs (tile_*, exit_granularity, accum_layout,
 frames_per_dispatch, bwd_tile_height, env_tex_shape) have no meaning on
-a GPU and are not carried over.
+a GPU and are not carried over; ``RenderConfig.from_dict`` drops them
+when it reads a JAX config (a checkpoint's). ``BENCH_CONFIGS`` are the
+JAX package's named presets without those knobs.
 
 ``backend`` picks the implementation of every kernel: ``"cuda"`` (the
 default) runs the hand-written CUDA kernels on the GPU and raises where
@@ -32,9 +34,10 @@ class RenderConfig:
 
     scene: str = "glass_spheres"
 
-    # "none" (constant ambient) or "equirect"; "cubemap" is not ported yet
+    # "none" (constant ambient), "equirect" or "cubemap" (six faces
+    # stacked vertically, px nx py ny pz nz)
     env_mode: str = "equirect"
-    # "stochastic" (jittered 1-tap) or "nearest"; "bilinear" not ported yet
+    # "stochastic" (jittered 1-tap), "nearest" or "bilinear" (4 taps)
     env_sampling: str = "stochastic"
     ambient: tuple = (0.11, 0.10, 0.15)
     env_flip_xz: bool = True
@@ -43,6 +46,9 @@ class RenderConfig:
     jitter: bool = True
     rng: str = "wang"                          # or "counter"
     roulette: str = "v4_quirk"                 # "off", "terminate", "v4_quirk"
+    # progressive accumulation (ACCUMULATE_FRAMES); part of the image
+    # fingerprint of a checkpoint, as in the JAX package
+    accumulate: bool = True
     exposure: float = 1.0
     # per-thread exit of a dead path's remaining segments where no later
     # draw depends on them; the output is identical either way
@@ -51,8 +57,7 @@ class RenderConfig:
     backend: str = "cuda"                      # or "torch"
 
     def validate(self) -> "RenderConfig":
-        """Raise ValueError on invalid values, NotImplementedError on
-        valid JAX-package settings this port does not support yet."""
+        """Raise ValueError on invalid values."""
         errs = []
         if self.width <= 0 or self.height <= 0:
             errs.append(f"resolution {self.width}x{self.height} must be positive")
@@ -74,18 +79,23 @@ class RenderConfig:
             errs.append(f"backend {self.backend!r} invalid")
         if errs:
             raise ValueError("invalid RenderConfig: " + "; ".join(errs))
-        if self.env_mode == "cubemap":
-            raise NotImplementedError(
-                "env_mode 'cubemap' is not ported yet: the env kernel "
-                "implements the equirect lookup only")
-        if self.env_mode != "none" and self.env_sampling == "bilinear":
-            raise NotImplementedError(
-                "env_sampling 'bilinear' is not ported yet: the deferred "
-                "env kernel fetches one texel (stochastic or nearest)")
         return self
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RenderConfig":
+        """A config from a field dict, the JAX package's included: fields
+        this port does not have (the TPU knobs) are dropped, and so is a
+        backend that is not one of the port's ("xla", "pallas")."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in d.items() if k in names}
+        if kw.get("backend") not in (None, "torch", "cuda"):
+            del kw["backend"]
+        if "ambient" in kw:
+            kw["ambient"] = tuple(kw["ambient"])
+        return cls(**kw)
 
 
 def resolve_device(backend: str, device=None) -> torch.device:
@@ -100,3 +110,34 @@ def resolve_device(backend: str, device=None) -> torch.device:
             raise ValueError(f"backend 'cuda' needs a cuda device, got {device}")
         return device
     return torch.device(device if device is not None else "cpu")
+
+
+# The JAX package's named presets (its BASELINE.json configs) without the
+# TPU knobs; all run the CUDA kernels.
+BENCH_CONFIGS = {
+    # demofox scalar scene: 320x240, 1 spp, 2 bounces, no env map
+    "scalar_320": RenderConfig(
+        width=320, height=240, spp=1, bounces=2, scene="cornell_box",
+        env_mode="none", ambient=(0.1, 0.1, 0.1), env_flip_xz=False,
+        jitter=True, roulette="off", num_frames=512),
+    # simd_tiled scene: 1280x720, 8 bounces, 4 spp, no env map
+    "simd_tiled_720": RenderConfig(
+        width=1280, height=720, spp=4, bounces=8, scene="glass_spheres",
+        env_mode="none", num_frames=64),
+    # simt_textured scene: 1920x1080 + env map, 16 spp (counter RNG: one
+    # kernel A launch and one env lookup per sample, combined once)
+    "textured_1080": RenderConfig(
+        width=1920, height=1080, spp=16, bounces=8, scene="glass_spheres",
+        env_mode="equirect", num_frames=16, rng="counter"),
+    # differentiable inverse render (diff/inverse.py)
+    "inverse_render": RenderConfig(
+        width=160, height=120, spp=4, bounces=3, scene="glass_spheres",
+        env_mode="none", rng="counter", num_frames=1),
+    # offline high-spp: 3840x2160, 1024 frames of 1 spp accumulated
+    # progressively (checkpoint/resume on frame boundaries)
+    "offline_4k": RenderConfig(
+        width=3840, height=2160, spp=1, bounces=8, scene="glass_spheres",
+        env_mode="equirect", rng="counter", num_frames=1024),
+    # the reference's default workload
+    "reference_default": RenderConfig(),
+}

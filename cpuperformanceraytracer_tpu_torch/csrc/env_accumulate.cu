@@ -14,8 +14,7 @@
 //      (JAX's clip-mode gather: u = 1 may wrap into the next row);
 //   4. one f32 load per channel;
 //   5. color = rgb + env * miss_thr (a never-missed pixel has miss_thr 0);
-//   6. accum += (color - accum) * blend in place, or accum += color when
-//      summing the samples of a multi-sample frame.
+//   6. accum += (color - accum) * blend in place.
 //
 // What bounds it: memory traffic, 11 plane reads, 3 accumulator reads and
 // writes and 3 texel loads per pixel (~72 bytes), at a few dozen flops.
@@ -35,7 +34,7 @@ __global__ void __launch_bounds__(256)
 env_accumulate_kernel(const float* __restrict__ planes, int n, const float* __restrict__ tex_r,
                       const float* __restrict__ tex_g, const float* __restrict__ tex_b,
                       int tex_w, int tex_h, float* __restrict__ accum, float blend,
-                      int sum_into, int env, int stochastic, int flip,
+                      int env, int stochastic, int flip,
                       int64_t* __restrict__ index_out) {
     const int p = blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= n) return;
@@ -72,29 +71,23 @@ env_accumulate_kernel(const float* __restrict__ planes, int n, const float* __re
         cg = cg + tex_g[idx] * planes[7 * n + p];
         cb = cb + tex_b[idx] * planes[8 * n + p];
     }
-    if (sum_into) {
-        accum[p] = accum[p] + cr;
-        accum[n + p] = accum[n + p] + cg;
-        accum[2 * n + p] = accum[2 * n + p] + cb;
-    } else {
-        const float ar = accum[p], ag = accum[n + p], ab = accum[2 * n + p];
-        accum[p] = ar + (cr - ar) * blend;
-        accum[n + p] = ag + (cg - ag) * blend;
-        accum[2 * n + p] = ab + (cb - ab) * blend;
-    }
+    const float ar = accum[p], ag = accum[n + p], ab = accum[2 * n + p];
+    accum[p] = ar + (cr - ar) * blend;
+    accum[n + p] = ag + (cg - ag) * blend;
+    accum[2 * n + p] = ab + (cb - ab) * blend;
 }
 
 }  // namespace
 
 extern "C" int cprt_env_accumulate(const float* planes, int n, const float* tex_r,
                                    const float* tex_g, const float* tex_b, int tex_w,
-                                   int tex_h, float* accum, float blend, int sum_into,
-                                   int env, int stochastic, int flip, int64_t* index_out,
+                                   int tex_h, float* accum, float blend, int env,
+                                   int stochastic, int flip, int64_t* index_out,
                                    void* stream) {
     const int threads = 256;
     const int blocks = (n + threads - 1) / threads;
     env_accumulate_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        planes, n, tex_r, tex_g, tex_b, tex_w, tex_h, accum, blend, sum_into, env,
-        stochastic, flip, index_out);
+        planes, n, tex_r, tex_g, tex_b, tex_w, tex_h, accum, blend, env, stochastic, flip,
+        index_out);
     return (int)cudaGetLastError();
 }

@@ -24,7 +24,10 @@ from typing import Dict, Optional
 import torch
 
 from cpuperformanceraytracer_tpu_torch.core.vecmath import Vec3
-from cpuperformanceraytracer_tpu_torch.kernels.backward import render_frame_diff
+from cpuperformanceraytracer_tpu_torch.kernels.backward import (
+    render_frame_diff,
+    require_diff_env,
+)
 from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import (
     env_color_reference,
 )
@@ -84,6 +87,7 @@ def render_frame_plain(scene, camera, texture, cfg, frame: int,
     """The plain versions under autograd: (3, H, W) colour."""
     if cfg.rng != "counter":
         raise ValueError("the diff path requires rng='counter'")
+    require_diff_env(cfg)
     tables = (*pack_scene(scene), pack_camera(camera, cfg))
     one = cfg.replace(spp=1)
     acc = None

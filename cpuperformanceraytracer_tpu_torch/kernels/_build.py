@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "cprt_render_planes": [
         _P, _I, _P, _I, _P, _I, _P,      # tables and their row counts
@@ -50,7 +50,7 @@ _SIGNATURES = {
         _P, _I,                           # planes (12, H, W), H*W
         _P, _P, _P, _I, _I,               # texture r g b, width, height
         _P, _F,                           # accum (3, H, W), blend
-        _I, _I, _I, _I,                   # sum_into env stochastic flip
+        _I, _I, _I,                       # env stochastic flip
         _P,                               # index_out (nullable)
         _P,                               # stream
     ],
@@ -67,6 +67,31 @@ _SIGNATURES = {
         _P, _P, _P,                       # texture r g b
         _P, _P, _P, _P,                   # cot_mt (3, n), d_r d_g d_b
         _I,                               # n
+        _P,                               # stream
+    ],
+    "cprt_env_lookup": [
+        _P, _I,                           # planes (12, H, W), H*W
+        _P, _P, _P, _I, _I,               # texture r g b, width, height
+        _I, _I, _I,                       # cubemap sampling flip
+        _P, _P,                           # out (P, 4), taps (P, 4) int64 (nullable)
+        _P,                               # stream
+    ],
+    "cprt_gather_texels": [
+        _P, _P, _P, _I, _I,               # texture r g b, width, height
+        _P, _P, _I, _I,                   # rows, cols, int64 indices?, n
+        _P,                               # out (n, 4)
+        _P,                               # stream
+    ],
+    "cprt_combine": [
+        _P, _L,                           # e4, its sample stride (floats)
+        _P, _L,                           # rgb, its sample stride
+        _P, _L,                           # thr, its sample stride
+        _P, _I, _I,                       # accum (3, H, W), H*W, spp
+        _F, _F,                           # inv_spp blend
+        _P,                               # stream
+    ],
+    "cprt_tonemap": [
+        _P, _P, _I, _F,                   # in, out (3, H, W), 3*H*W, exposure
         _P,                               # stream
     ],
 }

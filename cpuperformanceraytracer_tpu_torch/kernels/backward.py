@@ -60,6 +60,21 @@ def _require_counter(cfg) -> None:
                          "per-sample streams for the replay)")
 
 
+def require_diff_env(cfg) -> None:
+    """The env lookups the diff path differentiates: one tap of an
+    equirect map (kernels B and D), as the JAX Pallas backward."""
+    if cfg.env_mode == "none":
+        return
+    if cfg.env_sampling == "bilinear":
+        raise NotImplementedError(
+            "the diff path: env_sampling 'bilinear' is 4-tap (use "
+            "stochastic, the reference default, or nearest)")
+    if cfg.env_mode != "equirect":
+        raise NotImplementedError(
+            f"the diff path: env_mode {cfg.env_mode!r} is not ported "
+            "(kernels B and D look up an equirect map)")
+
+
 def bwd_tables_reference(tables, cfg, frame: int, sample0: int, cot6):
     """Plain kernel C: autograd of the plain kernel A's output planes."""
     _require_counter(cfg)
@@ -162,6 +177,7 @@ def render_frame_diff(scene, camera, texture, cfg, frame: int,
         raise ValueError("render_frame_diff runs the CUDA kernels (backend "
                          f"'cuda'), got backend {cfg.backend!r}")
     _require_counter(cfg)
+    require_diff_env(cfg)
     device = resolve_device("cuda")
     quad, sph, mat = (t.to(device).contiguous() for t in pack_scene(scene))
     cam = pack_camera(camera, cfg).to(device).contiguous()

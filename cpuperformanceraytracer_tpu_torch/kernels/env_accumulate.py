@@ -8,10 +8,7 @@ around the TPU megakernel, one fused memory-bound pass here
 (``csrc/env_accumulate.cu``). It reads kernel A's (12, H, W) planes and
 updates the planar (3, H, W) accumulator IN PLACE:
 
-    accum += (color - accum) * blend      (progressive mean), or
-    accum += color                        (``sum_into=True``: the
-                                           samples of a multi-sample
-                                           frame, divided once later)
+    accum += (color - accum) * blend      (progressive mean)
 
 With env_mode "none" the ambient was already added by kernel A and
 ``color = rgb``. ``index_out`` (optional int64 (H, W)) receives the
@@ -54,16 +51,13 @@ def env_color_reference(planes, texture, cfg):
 
 
 def env_accumulate_reference(planes, texture, cfg, accum, blend: float = 1.0,
-                             sum_into: bool = False, index_out=None):
+                             index_out=None):
     """Plain-torch kernel B (same contract as ``env_accumulate``)."""
     color, idx = env_color_reference(planes, texture, cfg)
     if index_out is not None and idx is not None:
         index_out.copy_(idx)
     for c in range(3):
-        if sum_into:
-            accum[c] += color[c]
-        else:
-            accum[c] += (color[c] - accum[c]) * blend
+        accum[c] += (color[c] - accum[c]) * blend
     return accum
 
 
@@ -92,11 +86,11 @@ def _check(planes, texture, cfg, accum, index_out):
 
 
 def env_accumulate(planes, texture, cfg, accum, blend: float = 1.0,
-                   sum_into: bool = False, index_out=None):
+                   index_out=None):
     """Kernel B wrapper; updates ``accum`` in place and returns it."""
     if planes.device.type == "cpu":
         return env_accumulate_reference(planes, texture, cfg, accum, blend,
-                                        sum_into, index_out)
+                                        index_out)
     if planes.device.type != "cuda":
         raise ValueError(f"env_accumulate: unsupported device {planes.device}")
     if cfg.env_mode not in ("none", "equirect") or (
@@ -115,7 +109,7 @@ def env_accumulate(planes, texture, cfg, accum, blend: float = 1.0,
         texture.g.data_ptr() if env else None,
         texture.b.data_ptr() if env else None,
         texture.width if env else 0, texture.height if env else 0,
-        accum.data_ptr(), ctypes.c_float(blend), int(sum_into), int(env),
+        accum.data_ptr(), ctypes.c_float(blend), int(env),
         int(cfg.env_sampling == "stochastic"), int(cfg.env_flip_xz),
         None if index_out is None else index_out.data_ptr(), stream)
     check(err, "env_accumulate")

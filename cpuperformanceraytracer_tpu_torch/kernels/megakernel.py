@@ -344,17 +344,26 @@ def _check_tables(tables):
         raise ValueError(f"cam_tbl must be (8,), got {tuple(tables[3].shape)}")
 
 
-def render_planes(tables, cfg, frame: int, sample0: int = 0) -> torch.Tensor:
-    """Kernel A wrapper: (12, H, W) f32 planes for one frame."""
+def render_planes(tables, cfg, frame: int, sample0: int = 0,
+                  out=None) -> torch.Tensor:
+    """Kernel A wrapper: (12, H, W) f32 planes for one frame, written into
+    ``out`` when given (a contiguous (12, H, W) f32 tensor, e.g. one
+    sample's slot of a (spp, 12, H, W) buffer)."""
     quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
     if quad_tbl.device.type == "cpu":
-        return render_planes_reference(tables, cfg, frame, sample0)
+        planes = render_planes_reference(tables, cfg, frame, sample0)
+        return planes if out is None else out.copy_(planes)
     if quad_tbl.device.type != "cuda":
         raise ValueError(f"render_planes: unsupported device {quad_tbl.device}")
     _check_tables(tables)
     nq, ns, nm = quad_tbl.shape[0], sph_tbl.shape[0], mat_tbl.shape[0]
-    out = torch.empty((N_PLANES, cfg.height, cfg.width), dtype=torch.float32,
-                      device=quad_tbl.device)
+    shape = (N_PLANES, cfg.height, cfg.width)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=quad_tbl.device)
+    elif (out.shape != shape or out.dtype != torch.float32
+          or not out.is_contiguous() or out.device != quad_tbl.device):
+        raise ValueError(f"render_planes: out {tuple(out.shape)} {out.dtype} "
+                         f"{out.device}, want {shape} contiguous f32")
     env_draws = cfg.env_mode != "none" and cfg.env_sampling == "stochastic"
     stream = torch.cuda.current_stream(quad_tbl.device).cuda_stream
     err = load_library().cprt_render_planes(

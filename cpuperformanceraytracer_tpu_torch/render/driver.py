@@ -1,10 +1,15 @@
-"""Offline render driver: warmup, timed progressive loop, image output.
+"""Offline render driver: warmup, timed progressive loop, progress,
+checkpoint/resume, image output.
 
 Counterpart of ``cpuperformanceraytracer_tpu.render.driver
 .OfflineRenderer`` (the reference's offline benchmark protocol): warmup
 frames into a scratch accumulator, then ``num_frames`` progressive
 frames timed on the host clock between device synchronisations, ms/frame
-and primary rays/s (W*H*spp per frame).
+and primary rays/s (W*H*spp per frame). With a checkpoint path the loop
+also synchronises on every ``checkpoint_every``-th frame and saves there
+(``io/checkpoint.py``, the JAX package's format; the save is not timed);
+``resume`` continues from a checkpoint. Images go through kernel G
+(``render/frame.postprocess_image``).
 
 ``backend="cuda"`` (the default) runs the CUDA kernels and needs a GPU:
 without one the constructor raises, it never falls back to the CPU.
@@ -20,6 +25,10 @@ import numpy as np
 import torch
 
 from cpuperformanceraytracer_tpu_torch.config import resolve_device
+from cpuperformanceraytracer_tpu_torch.io.checkpoint import (
+    resume_or_fresh,
+    save_checkpoint,
+)
 from cpuperformanceraytracer_tpu_torch.io.image import write_bmp, write_png
 from cpuperformanceraytracer_tpu_torch.render.frame import (
     make_frame_fn,
@@ -28,6 +37,7 @@ from cpuperformanceraytracer_tpu_torch.render.frame import (
 )
 from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
 from cpuperformanceraytracer_tpu_torch.texture.texture import Texture
+from cpuperformanceraytracer_tpu_torch.utils.log import get_logger, progress
 from cpuperformanceraytracer_tpu_torch.utils.timing import FrameTimer
 
 # frames enqueued between two synchronisations of the timed loop
@@ -39,8 +49,9 @@ class OfflineRenderer:
     scene and camera) on one device."""
 
     def __init__(self, cfg, texture: Optional[Texture] = None, scene=None,
-                 camera=None, device=None):
+                 camera=None, device=None, silent: bool = False):
         self.cfg = cfg.validate()
+        self.log = get_logger(silent=silent)
         self.device = resolve_device(self.cfg.backend, device)
         if scene is None or camera is None:
             scene, camera = scene_by_name(self.cfg.scene, device=self.device)
@@ -55,7 +66,14 @@ class OfflineRenderer:
         self.accum = zero_accum(self.cfg, self.device)
         self.frame = 0
 
-    def _sync(self) -> None:
+    def resume(self, checkpoint_path: Optional[str]) -> None:
+        """Continue from a checkpoint whose image fingerprint matches this
+        config; otherwise start fresh (zeros, frame 0)."""
+        self.accum, self.frame = resume_or_fresh(checkpoint_path, self.cfg,
+                                                 self.device)
+
+    def sync(self) -> None:
+        """Wait for the device work enqueued so far."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -64,33 +82,49 @@ class OfflineRenderer:
         self.frame_fn(self.texture, self.frame, self.accum)
         self.frame += 1
 
-    def run(self) -> FrameTimer:
-        """Warmup, then the timed loop of ``cfg.num_frames`` frames."""
-        cfg = self.cfg
-        if cfg.warmup_frames > 0:
-            # warm into a scratch accumulator so the image equals an
-            # unwarmed run's
-            keep = (self.accum, self.frame)
-            self.accum, self.frame = zero_accum(cfg, self.device), 0
-            for _ in range(cfg.warmup_frames):
-                self.step()
-            self._sync()
-            self.accum, self.frame = keep
+    def warmup(self) -> None:
+        """``cfg.warmup_frames`` frames into a scratch accumulator, so the
+        image equals an unwarmed run's."""
+        if self.cfg.warmup_frames <= 0:
+            return
+        keep = (self.accum, self.frame)
+        self.accum, self.frame = zero_accum(self.cfg, self.device), 0
+        for _ in range(self.cfg.warmup_frames):
+            self.step()
+        self.sync()
+        self.accum, self.frame = keep
 
+    def run(self, checkpoint_path: Optional[str] = None,
+            checkpoint_every: int = 0) -> FrameTimer:
+        """Warmup, then the timed loop of ``cfg.num_frames`` frames,
+        saving a checkpoint after every ``checkpoint_every``-th frame of
+        the loop when ``checkpoint_path`` is given."""
+        cfg = self.cfg
+        self.warmup()
+        save_every = checkpoint_every if checkpoint_path else 0
         timer = FrameTimer()
         done = 0
         while done < cfg.num_frames:
             todo = min(SYNC_EVERY, cfg.num_frames - done)
+            if save_every:
+                todo = min(todo, save_every - done % save_every)
             t0 = time.perf_counter()
             for _ in range(todo):
                 self.step()
-            self._sync()
+            self.sync()
             timer.add_span(time.perf_counter() - t0, todo)
             done += todo
+            progress(self.log, done - 1, cfg.num_frames)
+            if save_every and done % save_every == 0:
+                save_checkpoint(checkpoint_path, self.accum, self.frame, cfg)
+        rays = cfg.width * cfg.height * cfg.spp
+        self.log.info("mean %.3f ms/frame, %.1f Mrays/s (primary)",
+                      timer.mean_ms, timer.rays_per_second(rays) / 1e6)
         return timer
 
     def image_u8(self) -> np.ndarray:
-        return postprocess_image(self.accum, self.cfg.exposure).cpu().numpy()
+        return postprocess_image(self.accum, self.cfg.exposure,
+                                 self.cfg.backend).cpu().numpy()
 
     def write_image(self, path: str) -> None:
         img = self.image_u8()

@@ -1,9 +1,25 @@
-"""The progressive frame step: kernel A -> kernel B, and image output.
+"""The progressive frame step and the display transform.
 
-Counterpart of ``cpuperformanceraytracer_tpu.render.frame`` on the main
-path (``make_frame_fn`` -> ``render_accumulate_pallas``). The
-accumulator is one planar (3, H, W) f32 tensor, updated IN PLACE by
-each step: the counterpart of the JAX step's donated buffer.
+Counterpart of ``cpuperformanceraytracer_tpu.render.frame`` and the JAX
+multi-sample logic (``megakernel.py`` ``render_frame_pallas``,
+``render_accumulate_pallas``, ``_env_combined``). The accumulator is one
+planar (3, H, W) f32 tensor, updated IN PLACE by each step: the
+counterpart of the JAX step's donated buffer. Two routes:
+
+- A -> B (the forward main path): no env map, or one sample per frame
+  of the stochastic or nearest equirect lookup. Kernel A renders the
+  frame's samples, kernel B resolves the env and accumulates.
+- A -> E -> F (the textured multi-sample frame): an env map with spp >
+  1, bilinear or cubemap. Kernel A renders each sample into its slot of
+  one (spp, 12, H, W) buffer on an addressable counter stream
+  (``sample0 = s``), kernel E looks the env up into slot s of one
+  (spp, P, 4) buffer, and kernel F combines all samples and accumulates
+  once per frame. The lookup is the real one of every mode: bilinear
+  takes four taps at every spp (the JAX fused step takes the nearest tap
+  for bilinear when spp > 1; the port does not copy that).
+
+The sequential wang stream cannot split into per-sample launches, so
+spp > 1 with an env map needs the counter RNG, as in JAX.
 
 Image convention: (H, W), row 0 = top; the fragCoord y of a row is
 H-1-row.
@@ -14,16 +30,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cpuperformanceraytracer_tpu_torch.core.color import postprocess_color, to_u8
+from cpuperformanceraytracer_tpu_torch.core.color import to_u8
 from cpuperformanceraytracer_tpu_torch.core.vecmath import Vec3
+from cpuperformanceraytracer_tpu_torch.kernels.combine import (
+    combine_accumulate,
+    combine_accumulate_reference,
+)
 from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import (
     env_accumulate,
     env_accumulate_reference,
 )
+from cpuperformanceraytracer_tpu_torch.kernels.env_gather import (
+    env_lookup,
+    env_lookup_reference,
+)
 from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
+    N_PLANES,
     pack_tables,
     render_planes,
     render_planes_reference,
+)
+from cpuperformanceraytracer_tpu_torch.kernels.tonemap import (
+    tonemap,
+    tonemap_reference,
 )
 
 
@@ -32,23 +61,30 @@ def frame_blend(frame: int) -> float:
     return float(np.float32(1.0) / (np.float32(frame) + np.float32(1.0)))
 
 
-def accumulate_frame(accum, color, frame: int):
-    """accum += (color - accum) / (frame + 1), in place."""
-    blend = frame_blend(frame)
-    for c in range(3):
-        accum[c] += (color[c] - accum[c]) * blend
-    return accum
-
-
 def zero_accum(cfg, device="cpu") -> torch.Tensor:
     return torch.zeros((3, cfg.height, cfg.width), dtype=torch.float32,
                        device=device)
 
 
-def postprocess_image(accum, exposure: float = 1.0) -> torch.Tensor:
-    """(3, H, W) f32 -> (H, W, 3) u8: exposure, ACES, sRGB, round."""
-    return to_u8(postprocess_color(Vec3(accum[0], accum[1], accum[2]),
-                                   exposure))
+def postprocess_image(accum, exposure: float = 1.0,
+                      backend: str = "cuda") -> torch.Tensor:
+    """(3, H, W) f32 -> (H, W, 3) u8: kernel G's display transform
+    (exposure, ACES, sRGB; its plain version for backend "torch"), then
+    the round to u8."""
+    display = (tonemap if backend == "cuda" else tonemap_reference)(
+        accum, exposure)
+    return to_u8(Vec3(*display))
+
+
+def uses_combine(cfg) -> bool:
+    """True when a frame takes the A -> E -> F route."""
+    return cfg.env_mode != "none" and (
+        cfg.spp > 1 or cfg.env_mode == "cubemap"
+        or cfg.env_sampling == "bilinear")
+
+
+def _render_plain(tables, cfg, frame, sample0=0, out=None):
+    return out.copy_(render_planes_reference(tables, cfg, frame, sample0))
 
 
 def make_frame_fn(cfg, scene, camera, device):
@@ -57,10 +93,7 @@ def make_frame_fn(cfg, scene, camera, device):
 
     ``cfg.backend`` picks the kernels ("cuda") or their plain-torch
     versions ("torch"); the scene is packed into the kernel tables on
-    ``device`` once, here. spp > 1 with an env map renders one sample
-    per kernel-A launch on addressable counter streams, sums the
-    resolved colors with kernel B and divides once, as the JAX step;
-    the sequential wang stream cannot split that way and raises."""
+    ``device`` once, here."""
     cfg = cfg.validate()
     if cfg.spp > 1 and cfg.env_mode != "none" and cfg.rng != "counter":
         raise NotImplementedError(
@@ -68,21 +101,37 @@ def make_frame_fn(cfg, scene, camera, device):
             "addressable streams); the wang stream is sequential across "
             "the sample loop")
     tables = pack_tables(scene, camera, cfg, device)
-    if cfg.backend == "cuda":
-        render, resolve = render_planes, env_accumulate
-    else:
-        render, resolve = render_planes_reference, env_accumulate_reference
+    cuda = cfg.backend == "cuda"
+    if not uses_combine(cfg):
+        render = render_planes if cuda else render_planes_reference
+        resolve = env_accumulate if cuda else env_accumulate_reference
 
-    def step(texture, frame: int, accum: torch.Tensor) -> torch.Tensor:
-        if cfg.env_mode == "none" or cfg.spp == 1:
+        def step(texture, frame: int, accum: torch.Tensor) -> torch.Tensor:
             planes = render(tables, cfg, frame)
             return resolve(planes, texture, cfg, accum, frame_blend(frame))
-        one = cfg.replace(spp=1)
-        total = torch.zeros_like(accum)
-        for s in range(cfg.spp):
-            planes = render(tables, one, frame, sample0=s)
-            resolve(planes, texture, cfg, total, sum_into=True)
-        return accumulate_frame(accum, total * float(np.float32(1.0 / cfg.spp)),
-                                frame)
+
+        return step
+
+    render = render_planes if cuda else _render_plain
+    lookup = env_lookup if cuda else env_lookup_reference
+    combine = combine_accumulate if cuda else combine_accumulate_reference
+    one = cfg.replace(spp=1)
+    spp, h, w = cfg.spp, cfg.height, cfg.width
+    bufs = {}
+
+    def step(texture, frame: int, accum: torch.Tensor) -> torch.Tensor:
+        if not bufs:
+            kw = dict(dtype=torch.float32, device=accum.device)
+            bufs["planes"] = torch.empty((spp, N_PLANES, h, w), **kw)
+            bufs["e4"] = torch.empty((spp, h * w, 4), **kw)
+        planes, e4 = bufs["planes"], bufs["e4"]
+        for s in range(spp):
+            render(tables, one, frame, sample0=s, out=planes[s])
+            lookup(planes[s], texture, cfg, out=e4[s])
+        if spp == 1:
+            return combine(e4[0], planes[0, 0:3], planes[0, 6:9], accum,
+                           frame_blend(frame))
+        return combine(e4, planes[:, 0:3], planes[:, 6:9], accum,
+                       frame_blend(frame))
 
     return step

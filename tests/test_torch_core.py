@@ -186,7 +186,7 @@ class TestConfig:
 
         t, j = T(), J()
         shared = [f.name for f in dataclasses.fields(T) if f.name != "backend"]
-        assert len(shared) == 17
+        assert len(shared) == 18
         for name in shared:
             assert getattr(t, name) == getattr(j, name), name
 
@@ -197,8 +197,7 @@ class TestConfig:
             T(backend="pallas").validate()
         with pytest.raises(ValueError, match="spp"):
             T(spp=0).validate()
-        with pytest.raises(NotImplementedError, match="cubemap"):
-            T(env_mode="cubemap").validate()
-        with pytest.raises(NotImplementedError, match="bilinear"):
-            T(env_sampling="bilinear").validate()
+        with pytest.raises(ValueError, match="env_mode"):
+            T(env_mode="sphere").validate()
+        assert T(env_mode="cubemap", env_sampling="bilinear").validate()
         assert T(env_mode="none", env_sampling="bilinear").validate()

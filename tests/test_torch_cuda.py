@@ -12,6 +12,7 @@ sums over pixels taken in another order than autograd's (shared
 atomics): rtol 1e-3 with atol 1e-3 of the largest cotangent.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,6 +24,10 @@ from cpuperformanceraytracer_tpu_torch.kernels.backward import (
     bwd_tables,
     bwd_tables_reference,
 )
+from cpuperformanceraytracer_tpu_torch.kernels.combine import (
+    combine_accumulate,
+    combine_accumulate_reference,
+)
 from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import (
     env_accumulate,
     env_accumulate_reference,
@@ -31,11 +36,21 @@ from cpuperformanceraytracer_tpu_torch.kernels.env_backward import (
     env_backward,
     env_backward_reference,
 )
+from cpuperformanceraytracer_tpu_torch.kernels.env_gather import (
+    env_lookup,
+    env_lookup_reference,
+    gather_texels,
+    gather_texels_reference,
+)
 from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
     pack_tables,
     plane_mismatch,
     render_planes,
     render_planes_reference,
+)
+from cpuperformanceraytracer_tpu_torch.kernels.tonemap import (
+    tonemap,
+    tonemap_reference,
 )
 from cpuperformanceraytracer_tpu_torch.render.driver import OfflineRenderer
 from cpuperformanceraytracer_tpu_torch.render.frame import frame_blend
@@ -108,12 +123,6 @@ def test_env_accumulate_matches_plain(cuda_device, sampling, flip):
     same = gi == wi
     assert same.double().mean() >= 0.999
     torch.testing.assert_close(got[:, same], want[:, same], rtol=1e-5, atol=0)
-
-    got_sum, want_sum = torch.zeros_like(got), torch.zeros_like(got)
-    env_accumulate(planes, tex, cfg, got_sum, sum_into=True)
-    env_accumulate_reference(planes, tex, cfg, want_sum, sum_into=True)
-    torch.testing.assert_close(got_sum[:, same], want_sum[:, same],
-                               rtol=1e-5, atol=0)
 
 
 def test_env_accumulate_env_none(cuda_device):
@@ -245,3 +254,148 @@ def test_render_frame_diff_matches_plain(cuda_device):
         assert torch.isfinite(gc[k]).all(), k
         na, nb = gt[k].norm().item(), gc[k].norm().item()
         assert na > 0 and abs(na - nb) <= 0.05 * na, (k, na, nb)
+
+
+# ---- kernels E, F, G and the textured multi-sample route ----------------
+
+def _env_texture(env_mode, dev):
+    if env_mode == "cubemap":
+        return texture_from_array(np.concatenate(
+            [gradient_sky(32, 32, seed=i) for i in range(6)]), dev)
+    return texture_from_array(gradient_sky(128, 64), dev)
+
+
+@pytest.mark.parametrize("env_mode", ["equirect", "cubemap"])
+@pytest.mark.parametrize("sampling", ["stochastic", "nearest", "bilinear"])
+def test_env_lookup_matches_plain(cuda_device, env_mode, sampling):
+    """Taps equal on >= 99.9% of pixels (atan2f/asinf may sit an ulp from
+    torch's), the rows equal to rtol 1e-6 where the taps agree."""
+    cfg = RenderConfig(width=256, height=64, bounces=3, rng="counter",
+                       env_mode=env_mode, env_sampling=sampling)
+    tex = _env_texture(env_mode, cuda_device)
+    planes = render_planes(_tables("glass_spheres", cfg, cuda_device), cfg, 2)
+    n = cfg.width * cfg.height
+    taps = torch.empty((n, 4), dtype=torch.int64, device=cuda_device)
+    taps_w = torch.empty_like(taps)
+    out = torch.full((2, n, 4), -1.0, device=cuda_device)
+    n0 = env_lookup.launches
+    got = env_lookup(planes, tex, cfg, out=out[1], taps_out=taps)
+    want = env_lookup_reference(planes, tex, cfg, taps_out=taps_w)
+    torch.cuda.synchronize()
+    assert env_lookup.launches == n0 + 1 and (out[0] == -1.0).all()
+    same = (taps == taps_w).all(-1)
+    assert same.double().mean() >= 0.999
+    torch.testing.assert_close(got[same], want[same], rtol=1e-6, atol=1e-7)
+    assert (got[:, 3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_gather_texels_bit_equal(cuda_device, dtype):
+    tex = texture_from_array(gradient_sky(96, 48), cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    rows = torch.randint(-4, 52, (5000,), device=cuda_device, generator=gen,
+                         dtype=dtype)
+    cols = torch.randint(-4, 100, (5000,), device=cuda_device, generator=gen,
+                         dtype=dtype)
+    got = gather_texels(tex, rows, cols)
+    assert torch.equal(got, gather_texels_reference(tex, rows, cols))
+
+
+@pytest.mark.parametrize("spp", [1, 3])
+def test_combine_matches_plain(cuda_device, spp):
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(spp)
+    h, w = 48, 80
+    planes = torch.rand((spp, 12, h, w), device=dev, generator=gen)
+    e4 = torch.rand((spp, h * w, 4), device=dev, generator=gen)
+    acc = torch.rand((3, h, w), device=dev, generator=gen)
+    if spp == 1:
+        args = (e4[0], planes[0, 0:3], planes[0, 6:9])
+    else:
+        args = (e4, planes[:, 0:3], planes[:, 6:9])
+    n0 = combine_accumulate.launches
+    got = combine_accumulate(*args, acc.clone(), 0.2)
+    want = combine_accumulate_reference(*args, acc.clone(), 0.2)
+    torch.cuda.synchronize()
+    assert combine_accumulate.launches == n0 + 1
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_tonemap_matches_plain(cuda_device):
+    from cpuperformanceraytracer_tpu_torch.core.color import to_u8
+    from cpuperformanceraytracer_tpu_torch.core.vecmath import Vec3
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    acc = torch.rand((3, 37, 53), device=cuda_device, generator=gen) * 4
+    acc[0, 0, :4] = torch.tensor([0.0, 1e-12, 1e-3, 50.0])
+    got, want = tonemap(acc, 1.2), tonemap_reference(acc, 1.2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    d = (to_u8(Vec3(*got)).int() - to_u8(Vec3(*want)).int()).abs()
+    assert d.max() <= 1 and (d == 0).double().mean() >= 0.9999
+
+
+@pytest.mark.parametrize("env_mode,sampling", [("equirect", "bilinear"),
+                                               ("cubemap", "nearest")])
+def test_textured_route_launches_and_agrees(cuda_device, tmp_path, env_mode,
+                                            sampling):
+    """spp 3 with an env map: kernel A and E three times a frame, F once,
+    B never; cornell strict against the plain path on the card; one
+    image write launches G once."""
+    cfg = RenderConfig(width=128, height=32, bounces=2, spp=3, rng="counter",
+                       scene="cornell_box", env_mode=env_mode,
+                       env_sampling=sampling, num_frames=2, warmup_frames=0,
+                       backend="cuda")
+    tex = _env_texture(env_mode, cuda_device)
+    r = OfflineRenderer(cfg, texture=tex, silent=True)
+    plain = OfflineRenderer(cfg.replace(backend="torch"), texture=tex,
+                            device=cuda_device, silent=True)
+    kernels = (render_planes, env_lookup, combine_accumulate, env_accumulate,
+               tonemap)
+    before = [k.launches for k in kernels]
+    r.run()
+    for _ in range(2):
+        plain.step()
+    r.write_image(str(tmp_path / "t.png"))
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [6, 6, 2, 0, 1]
+    torch.testing.assert_close(r.accum, plain.accum, rtol=1e-4, atol=1e-5)
+
+
+def test_checkpoint_resume_bit_equal(cuda_device, tmp_path):
+    cfg = RenderConfig(width=128, height=32, bounces=3, spp=2, rng="counter",
+                       env_sampling="bilinear", num_frames=4, warmup_frames=1,
+                       backend="cuda")
+    tex = _env_texture("equirect", cuda_device)
+    path = str(tmp_path / "c.npz")
+    OfflineRenderer(cfg, texture=tex, silent=True).run(path, 2)
+    b = OfflineRenderer(cfg.replace(num_frames=2), texture=tex, silent=True)
+    b.resume(path)
+    b.run()
+    whole = OfflineRenderer(cfg.replace(num_frames=6), texture=tex,
+                            silent=True)
+    whole.run()
+    assert b.frame == whole.frame == 6
+    assert torch.equal(b.accum, whole.accum)
+
+
+def test_new_wrappers_reject_bad_inputs(cuda_device):
+    dev = cuda_device
+    tex = _env_texture("equirect", dev)
+    cfg = RenderConfig(width=64, height=16)
+    with pytest.raises(ValueError):
+        env_lookup(torch.zeros((11, 16, 64), device=dev), tex, cfg)
+    with pytest.raises(ValueError):
+        gather_texels(tex, torch.zeros(4, dtype=torch.int32, device=dev),
+                      torch.zeros(4, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):
+        combine_accumulate(torch.zeros((16 * 64, 3), device=dev),
+                           torch.zeros((3, 16, 64), device=dev),
+                           torch.zeros((3, 16, 64), device=dev),
+                           torch.zeros((3, 16, 64), device=dev), 1.0)
+    with pytest.raises(ValueError):   # the card takes per-sample rgb only
+        combine_accumulate(torch.zeros((2, 16 * 64, 4), device=dev),
+                           torch.zeros((3, 16, 64), device=dev),
+                           torch.zeros((2, 3, 16, 64), device=dev),
+                           torch.zeros((3, 16, 64), device=dev), 1.0)
+    with pytest.raises(ValueError):
+        tonemap(torch.zeros((4, 16, 64), device=dev))

@@ -15,7 +15,10 @@ from cpuperformanceraytracer_tpu.render.frame import accumulate_frame
 from cpuperformanceraytracer_tpu.texture import texture as jtex
 from cpuperformanceraytracer_tpu.texture.procedural import gradient_sky
 from cpuperformanceraytracer_tpu_torch.config import RenderConfig
-from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
+from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import (
+    env_accumulate,
+    env_color_reference,
+)
 from cpuperformanceraytracer_tpu_torch.render.frame import frame_blend
 from cpuperformanceraytracer_tpu_torch.core.vecmath import Vec3
 from cpuperformanceraytracer_tpu_torch.texture.texture import (
@@ -78,18 +81,9 @@ def test_plain_matches_jax(sampling):
                                    rtol=1e-5)
 
 
-def test_sum_into_and_env_none():
-    sky = gradient_sky(32, 16, seed=4)
-    tex = texture_from_array(sky)
+def test_env_none():
     p, _ = _planes(seed=1)
     planes = torch.as_tensor(p)
-    cfg = RenderConfig(width=W, height=H)
-    total = torch.zeros((3, H, W))
-    one = env_accumulate(planes, tex, cfg, torch.zeros((3, H, W)), 1.0)
-    env_accumulate(planes, tex, cfg, total, sum_into=True)
-    env_accumulate(planes, tex, cfg, total, sum_into=True)
-    torch.testing.assert_close(total, 2.0 * one, rtol=0, atol=0)
-
     none = RenderConfig(width=W, height=H, env_mode="none")
     acc = torch.ones((3, H, W))
     env_accumulate(planes, None, none, acc, 0.25)
@@ -100,11 +94,11 @@ def test_frame_zero_stores_color_exactly():
     sky = gradient_sky(32, 16, seed=5)
     p, _ = _planes(seed=2)
     cfg = RenderConfig(width=W, height=H)
-    a = env_accumulate(torch.as_tensor(p), texture_from_array(sky), cfg,
+    tex = texture_from_array(sky)
+    a = env_accumulate(torch.as_tensor(p), tex, cfg,
                        torch.zeros((3, H, W)), frame_blend(0))
-    b = env_accumulate(torch.as_tensor(p), texture_from_array(sky), cfg,
-                       torch.zeros((3, H, W)), sum_into=True)
-    assert frame_blend(0) == 1.0 and torch.equal(a, b)
+    color, _ = env_color_reference(torch.as_tensor(p), tex, cfg)
+    assert frame_blend(0) == 1.0 and torch.equal(a, color)
 
 
 def test_sample_environment_deferred_matches_jax():
