@@ -71,13 +71,30 @@ Phases, one line each; any failure raises and the exit code is not 0:
    same route, checked the same way; a PNG written through kernel G
    (one launch);
 13. checkpoint/resume on the card: 8 textured_1080 frames saved every 4,
-   a new renderer resumed for 4 more, bit-equal to 12 frames in one run.
+   a new renderer resumed for 4 more, bit-equal to 12 frames in one run;
+14. the probes (kernels K6-K8, built into their own library in phase 2):
+   with the probe kernels' launch counts set to 0, the three probe entry
+   points run as a user runs them (``probes.trace_probe``, ``probes.
+   gather_bench``, ``probes.overlap_probe``: P1 kernel A and the texel
+   gather on two streams, P2 serial row copies, P3 the cluster gather)
+   and every probe kernel must have launched; then each kernel against
+   its plain version on the card: K6 on the CUDA cores at rtol 1e-6 (the
+   same chains in the same order), on the tensor cores (3xTF32) under
+   1e-4 max relative error against the CUDA cores; K7 in all three
+   layouts, K8a (TMA and cp.async, 512- and 16-byte rows, 256 to 4096
+   copies) and K8b (2048 and 921600 queries) bit-equal; last, kernels B,
+   D, E and G and ``index_add_`` at 720p timed both ways, back to back
+   (as phases 4-12 time them) and with the stream held full (as the
+   probes time theirs): where back to back is longer, the host's
+   enqueue set its pace.
 
 Then one JSON line with each kernel's numbers (times, launches on the
 main paths, and the bound: the larger of its bytes over 3.35 TB/s and
-its FP32 operations over 67 TFLOP/s, counted from this run's inputs),
-the card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
-Without a GPU it exits non-zero before printing any result.
+its operations over the peak of their type (FP32 67 TFLOP/s, TF32 on
+the tensor cores 495 TFLOP/s), counted from this run's inputs; a probe
+kernel's launches are those of the probe entry points, on no render
+path), the card's nvidia-smi line, and last ``{"ok": true, "device":
+{...}}``. Without a GPU it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -87,14 +104,16 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 WARMUP, FRAMES = 2, 64
 STEPS = 64                      # timed training steps (2 spans)
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FP32 FLOP/s
-PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FP32 FLOP/s,
+# TF32 tensor-core FLOP/s
+PEAK_BYTES, PEAK_FLOPS, PEAK_TF32 = 3.35e12, 67e12, 495e12
 
 # FP32 operations the kernels execute unconditionally, counted from
 # csrc/bounce.cuh and csrc/backward.cu (add, sub, mul, div, sqrt, min,
@@ -107,10 +126,11 @@ FLOPS_ADJOINT = 110                    # a segment's hand-written adjoint
 FLOPS_CAMERA_ADJ = 27
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, flops: float, tf32_flops: float = 0.0) -> tuple:
     """(bound_ms, bound_by): the least time the card needs for the work."""
-    t_bytes, t_flops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(flops / PEAK_FLOPS, tf32_flops / PEAK_TF32) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def segment_flops(tables) -> int:
@@ -722,6 +742,199 @@ def phase_checkpoint(dev) -> None:
           "in a new renderer == 12 frames in one run, bit for bit")
 
 
+def phase_probes(dev, gpu) -> tuple:
+    """Phase 14: the probe entry points with counted launches, then K6-K8
+    against their plain versions; the four kernels' JSON rows. Times are
+    device times with the stream held full (``device_ms``), except the
+    plain K6 (7290 torch ops a call, timed back to back)."""
+    from cpuperformanceraytracer_tpu_torch.probes import (
+        gather_bench,
+        overlap_probe,
+        trace_probe,
+    )
+    from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
+
+    def dms(fn, iters):
+        return device_ms(fn, iters, dev)
+
+    kernels = {"trace_dots": trace_probe.trace_dots,
+               "texel_gather": gather_bench.texel_gather,
+               "row_copy": overlap_probe.row_copy,
+               "dsmem_gather": overlap_probe.dsmem_gather}
+    for k in kernels.values():
+        k.launches = 0
+    t = trace_probe.run(dev)
+    g = gather_bench.run(dev)
+    o = overlap_probe.run(dev)
+    launches = {name: k.launches for name, k in kernels.items()}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"probe kernels not launched: {launches}")
+    p1, p2, p3 = o["p1"], o["p2"], o["p3"]
+
+    # K6: 9 segments of 54 dots of 8 features, then the acc chain (55 ops)
+    x, B = t["x"], t["B"]
+    n = x.shape[1] * x.shape[2]
+    want = trace_probe.trace_dots_reference(x, B)
+    got = trace_probe.trace_dots(x, B, "cuda_core")
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0,
+                               msg=lambda m: f"K6 cuda_core vs plain: {m}")
+    err_k6 = (got - want).abs().max().item()
+    tc_err = trace_probe.max_rel_err(trace_probe.trace_dots(x, B, "tensor_core"),
+                                     got)
+    if not tc_err < 1e-4:
+        raise AssertionError(f"K6 tensor_core vs cuda_core: max rel err {tc_err}")
+    plain_k6 = cuda_ms(lambda: trace_probe.trace_dots_reference(x, B), 2, 1)
+    chain = trace_probe.REPEAT * n * 55
+    bound_cc = bound(n * 9 * 4, trace_probe.REPEAT * n * trace_probe.NCOL * 15 + chain)
+    bound_tc = bound(n * 9 * 4, chain, 3 * trace_probe.REPEAT * n * 56 * 8 * 2)
+
+    # K7: the race's entries, each layout bit-equal to the plain version
+    planes, packed, flat = g["planes"], g["packed"], g["flat"]
+    layouts = {"planar_1": (planes[:1], False), "planar_3": (planes, False),
+               "packed": (packed, True)}
+    k7 = {}
+    for key, (table, pk) in layouts.items():
+        out = gather_bench.texel_gather(table, flat, pk)
+        if not torch.equal(out, gather_bench.texel_gather_reference(
+                table, flat, pk)):
+            raise AssertionError(f"K7 {key} differs from its plain version")
+        k7[key] = dict(
+            ms=dms(lambda: gather_bench.texel_gather(table, flat, pk), 100),
+            plain_ms=dms(lambda: gather_bench.texel_gather_reference(
+                table, flat, pk), 20),
+            bound=bound(4 * (flat.numel() + out.numel() + table.numel()), 0))
+    flat64 = flat.long()
+    k7["planar_1"]["library_ms"] = dms(lambda: planes[0][flat64], 100)
+    k7["packed"]["library_ms"] = dms(lambda: packed.index_select(0, flat64), 100)
+    if not all(g["correct"].values()):
+        raise AssertionError(f"gather race: {g['correct']}")
+
+    # K8a: every mechanism, row and copy count bit-equal to the contract
+    k8a = {}
+    for (mech, row_bytes, copies), ms in p2["ms"].items():
+        table = p2["table"][:, :row_bytes // 4].contiguous()
+        idx = p2["idx"][:copies]
+        out = overlap_probe.row_copy(table, idx, mech)
+        if not torch.equal(out, overlap_probe.row_copy_reference(table, idx)):
+            raise AssertionError(f"K8a {mech} {row_bytes} B x {copies} differs")
+        k8a[f"{mech}_{row_bytes}B_{copies}"] = dict(
+            ms=ms, ns_per_copy=ms * 1e6 / copies,
+            bound=bound(copies * (4 + row_bytes) + out.numel() * 4, 0))
+    table, idx = p2["table"], p2["idx"]
+    last = idx[torch.arange(overlap_probe.SLOTS, device=dev)
+               + idx.numel() - overlap_probe.SLOTS].long()
+    if not torch.equal(table.index_select(0, last),
+                       overlap_probe.row_copy(table, idx)):
+        raise AssertionError("K8a: index_select of the last 8 rows differs")
+    lib_k8a = dms(lambda: table.index_select(0, last), 100)
+    plain_k8a = dms(lambda: overlap_probe.row_copy_reference(table, idx), 20)
+    if not all(p2["correct"].values()):
+        raise AssertionError(f"P2: {p2['correct']}")
+
+    # K8b: both query counts bit-equal; the L2 gather (K7) beside
+    tbl = p3["table"]
+    k8b = {}
+    for key, (rows, cols) in (("2048", p3["small"]), ("921600", p3["big"])):
+        out = overlap_probe.dsmem_gather(tbl, rows, cols)
+        if not torch.equal(out, overlap_probe.dsmem_gather_reference(
+                tbl, rows, cols)):
+            raise AssertionError(f"K8b at {key} queries differs")
+        r64, c64 = rows.long(), cols.long()
+        k8b[key] = dict(
+            ms=p3["ms"]["16x128" if key == "2048" else key],
+            plain_ms=dms(lambda: overlap_probe.dsmem_gather_reference(
+                tbl, rows, cols), 20),
+            library_ms=dms(lambda: tbl[r64, c64], 100),
+            bound=bound(tbl.numel() * 4 + rows.numel() * 12, 0))
+    if not all(p3["correct"].values()):
+        raise AssertionError(f"P3: {p3['correct']}")
+
+    phase("probes", f"launches {launches}; K6 cuda_core "
+          f"{t['ms']['cuda_core']:.4f} ms (plain {plain_k6:.2f}, bound "
+          f"{bound_cc[0]:.4f}, max abs err vs plain {err_k6:.3g}), tensor_core "
+          f"{t['ms']['tensor_core']:.4f} ms (bound {bound_tc[0]:.4f}, max rel "
+          f"err vs cuda_core {tc_err:.3e}); K7 " + ", ".join(
+              f"{k} {v['ms']:.4f} ms" for k, v in k7.items())
+          + f" (plane[flat] {k7['planar_1']['library_ms']:.4f}, index_select "
+          f"(N,4) {k7['packed']['library_ms']:.4f}); K8a ns/copy at 4096: "
+          + ", ".join(f"{k.rsplit('_', 1)[0]} {v['ns_per_copy']:.1f}"
+                      for k, v in k8a.items() if k.endswith("_4096"))
+          + f"; K8b {k8b['2048']['ms']:.4f} ms at 2048 q, "
+          f"{k8b['921600']['ms']:.4f} at 921600 (L2 gather K7 "
+          f"{p3['ms']['l2_921600']:.4f}); P1 trivial {p1['ms']['trivial']:.4f}"
+          f" | kernel A {p1['ms']['kernel']:.4f} | gather "
+          f"{p1['ms']['gather']:.4f} | together {p1['ms']['together']:.4f} "
+          f"ms, overlap {p1['overlap']}; GPU {gpu}")
+
+    def variants(d):
+        return {k: dict({m: v for m, v in row.items() if m != "bound"},
+                        bound_ms=row["bound"][0], bound_by=row["bound"][1])
+                for k, row in d.items()}
+
+    main_k8a = k8a["tma_512B_4096"]
+    return [
+        dict(name="trace_dots",
+             source="cpuperformanceraytracer_tpu_torch/csrc/probes/trace_dots.cu",
+             replaces="scripts/mxu_trace_probe.py:77",
+             launches=launches["trace_dots"], max_abs_err=err_k6,
+             ms=t["ms"]["cuda_core"], plain_ms=plain_k6, bound=bound_cc,
+             library_ms=None, launches_by_path={}, variants=variants({
+                 "cuda_core": dict(ms=t["ms"]["cuda_core"], bound=bound_cc),
+                 "tensor_core": dict(ms=t["ms"]["tensor_core"], bound=bound_tc,
+                                     max_rel_err_vs_cuda_core=tc_err)})),
+        dict(name="texel_gather",
+             source="cpuperformanceraytracer_tpu_torch/csrc/probes/texel_gather.cu",
+             replaces="scripts/gather_bench.py:85",
+             launches=launches["texel_gather"], max_abs_err=0.0,
+             ms=k7["planar_1"]["ms"], plain_ms=k7["planar_1"]["plain_ms"],
+             bound=k7["planar_1"]["bound"],
+             library_ms=k7["planar_1"]["library_ms"], launches_by_path={},
+             variants=variants(k7)),
+        dict(name="row_copy",
+             source="cpuperformanceraytracer_tpu_torch/csrc/probes/row_copy.cu",
+             replaces="scripts/overlap_probe.py:159",
+             launches=launches["row_copy"], max_abs_err=0.0,
+             ms=main_k8a["ms"], plain_ms=plain_k8a, bound=main_k8a["bound"],
+             library_ms=lib_k8a, launches_by_path={}, variants=variants(k8a)),
+        dict(name="dsmem_gather",
+             source="cpuperformanceraytracer_tpu_torch/csrc/probes/dsmem_gather.cu",
+             replaces="scripts/overlap_probe.py:199",
+             launches=launches["dsmem_gather"], max_abs_err=0.0,
+             ms=k8b["2048"]["ms"], plain_ms=k8b["2048"]["plain_ms"],
+             bound=k8b["2048"]["bound"], library_ms=k8b["2048"]["library_ms"],
+             launches_by_path={}, variants=variants(k8b)),
+    ], dict(p1=p1["ms"], p1_overlap=p1["overlap"],
+            p1_gather_queries=p1["queries"])
+
+
+def phase_held_times(dev, planes, idx, tex, cfg, accum) -> dict:
+    """Phase 14, last: small kernels timed back to back and held full."""
+    from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
+    from cpuperformanceraytracer_tpu_torch.kernels.env_backward import env_backward
+    from cpuperformanceraytracer_tpu_torch.kernels.env_gather import env_lookup
+    from cpuperformanceraytracer_tpu_torch.kernels.tonemap import tonemap
+    from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g = torch.randn((3,) + tuple(idx.shape), device=dev, generator=gen)
+    mt = planes[6:9]
+    vals = (g * mt).reshape(3, -1).t().contiguous()
+    scatter = torch.zeros((tex.width * tex.height, 3), device=dev)
+    flat, acc = idx.reshape(-1), accum.clone()
+    e4 = torch.empty((idx.numel(), 4), device=dev)
+    calls = {"env_accumulate": lambda: env_accumulate(planes, tex, cfg, acc, 0.5),
+             "env_backward": lambda: env_backward(g, idx, mt, tex),
+             "index_add_": lambda: scatter.index_add_(0, flat, vals),
+             "env_lookup": lambda: env_lookup(planes, tex, cfg, out=e4),
+             "tonemap": lambda: tonemap(accum)}
+    out = {k: dict(back_to_back_ms=cuda_ms(fn, 100), held_ms=device_ms(fn, 100, dev))
+           for k, fn in calls.items()}
+    phase("held stream", "720p, ms back to back / held full: " + ", ".join(
+        f"{k} {v['back_to_back_ms']:.4f} / {v['held_ms']:.4f}"
+        for k, v in out.items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -751,11 +964,15 @@ def main() -> int:
           f"{torch.cuda.device_count()}; nvidia-smi: {gpu}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    b = _build.build()
-    ptxas = [ln.strip() for ln in b.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase("build", f"{b.path.name} in {b.seconds:.1f} s; " + " | ".join(ptxas))
-    _build.load_library()
+    # both libraries at once, one nvcc per source
+    with ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(_build.build, (_build.RENDER, _build.PROBES)))
+    for b in builds:
+        ptxas = [ln.strip() for ln in b.log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        phase("build", f"{b.path.name} in {b.seconds:.1f} s; " + " | ".join(ptxas))
+    _build.load_library(_build.RENDER)
+    _build.load_library(_build.PROBES)
 
     # ---- phase 3: kernel A vs plain on the card --------------------------
     max_err_a = 0.0
@@ -873,6 +1090,11 @@ def main() -> int:
     x = phase_textured(dev, gpu)
     phase_checkpoint(dev)
 
+    # ---- phase 14: the probes --------------------------------------------
+    probe_rows, probes = phase_probes(dev, gpu)
+    probes["held_stream_720p"] = phase_held_times(dev, planes, gi, tex, cfg,
+                                                  accum)
+
     # ---- the kernels' numbers ---------------------------------------------
     n_px = cfg.width * cfg.height
     tex_bytes = 3 * 4 * tex.width * tex.height
@@ -921,6 +1143,7 @@ def main() -> int:
              replaces="cpuperformanceraytracer_tpu/kernels/tonemap.py:46",
              launches=x["launches"]["tonemap"], max_abs_err=err_g,
              **x["g"]),
+        *probe_rows,
     ]
     for r in rows:
         r["route"] = "cuda"
@@ -932,7 +1155,8 @@ def main() -> int:
                                     "idle_share": idle, "frames": FRAMES,
                                     "warmup": WARMUP},
                       "training_path": t["summary"],
-                      "textured_path": x["summary"]}))
+                      "textured_path": x["summary"],
+                      "probes": probes}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,19 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` (all started
-together), and the objects are linked into ONE shared library with a
-plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
-build takes seconds). Each pointer and the stream pass as ``c_void_p``;
-every C entry point returns the ``cudaError_t`` of its launch, which
-``check`` turns into an exception.
+Two libraries, each built the same way: ``RENDER`` from ``csrc/*.cu``
+(the kernels of the render and training paths) and ``PROBES`` from
+``csrc/probes/*.cu`` (the probe kernels), so a probe source that fails to
+compile never touches the main paths, and the render library's name and
+build time do not depend on the probes. Every ``.cu`` file of a library
+is compiled by its own ``nvcc`` (all started together), and the objects
+are linked into one shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so the build takes seconds). Each pointer
+and the stream pass as ``c_void_p``; every C entry point returns the
+``cudaError_t`` of its launch, which ``check`` turns into an exception.
 
-The library goes to ``<repo>/build/kernels/`` (``build/`` is listed in
-``.gitignore``), named by a hash of the sources, headers and flags, and
-is built at the first use in a process. Nothing is compiled at import
+A library goes to ``<repo>/build/kernels/`` (``build/`` is listed in
+``.gitignore``), named by a hash of its sources, headers and flags, and
+is built at its first use in a process. Nothing is compiled at import
 time.
 
 Flags: ``sm_90a``, ``-O3``, ``--fmad=false`` and no ``--use_fast_math``
@@ -95,6 +99,38 @@ _SIGNATURES = {
         _P,                               # stream
     ],
 }
+_PROBE_SIGNATURES = {
+    "cprt_trace_dots": [
+        _P, _P, _P, _I, _I,               # x (8, n), B (54, 8), out, n, tensor_core?
+        _P,                               # stream
+    ],
+    "cprt_texel_gather": [
+        _P, _I, _I,                       # table, entries, planes (0: packed (N, 4))
+        _P, _I, _P,                       # idx (n,) int32, n, out
+        _P,                               # stream
+    ],
+    "cprt_row_copy": [
+        _P, _I, _I,                       # table, its rows, floats a row
+        _P, _I, _P, _I,                   # idx (n,) int32, n, out (8, row), tma?
+        _P,                               # stream
+    ],
+    "cprt_dsmem_gather": [
+        _P, _P, _P, _I, _P,               # table (256, 512), rows, cols, n, out
+        _P,                               # stream
+    ],
+}
+
+
+@dataclass(frozen=True, eq=False)
+class Library:
+    name: str          # the .so file's stem, before the hash
+    src_dir: Path      # its sources: src_dir/*.cu and src_dir/*.cuh
+    signatures: tuple  # (C entry point, ctypes argument types) pairs
+
+
+RENDER = Library("cprt_kernels", CSRC_DIR, tuple(_SIGNATURES.items()))
+PROBES = Library("cprt_probes", CSRC_DIR / "probes",
+                 tuple(_PROBE_SIGNATURES.items()))
 
 
 @dataclass(frozen=True)
@@ -116,14 +152,14 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
-def build() -> Build:
-    """Compile the library unless a build of these exact sources exists."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
+def build(lib: Library = RENDER) -> Build:
+    """Compile a library unless a build of these exact sources exists."""
+    sources = sorted(lib.src_dir.glob("*.cu"))
     digest = hashlib.sha1()
-    for p in sources + sorted(CSRC_DIR.glob("*.cuh")):
+    for p in sources + sorted(lib.src_dir.glob("*.cuh")):
         digest.update(p.name.encode() + p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f"libcprt_kernels_{digest.hexdigest()[:16]}.so"
+    path = BUILD_DIR / f"lib{lib.name}_{digest.hexdigest()[:16]}.so"
     if path.exists():
         return Build(path, "", 0.0)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
@@ -152,19 +188,19 @@ def build() -> Build:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build().path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+def load_library(lib: Library = RENDER) -> ctypes.CDLL:
+    dll = ctypes.CDLL(str(build(lib).path))
+    for name, argtypes in lib.signatures:
+        fn = getattr(dll, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.cprt_error_string.argtypes = [ctypes.c_int]
-    lib.cprt_error_string.restype = ctypes.c_char_p
-    return lib
+    dll.cprt_error_string.argtypes = [ctypes.c_int]
+    dll.cprt_error_string.restype = ctypes.c_char_p
+    return dll
 
 
-def check(err: int, what: str) -> None:
+def check(err: int, what: str, lib: Library = RENDER) -> None:
     """Raise if a launch returned a CUDA error."""
     if err:
-        msg = load_library().cprt_error_string(err).decode()
+        msg = load_library(lib).cprt_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")

@@ -52,6 +52,11 @@ from cpuperformanceraytracer_tpu_torch.kernels.tonemap import (
     tonemap,
     tonemap_reference,
 )
+from cpuperformanceraytracer_tpu_torch.probes import (
+    gather_bench,
+    overlap_probe,
+    trace_probe,
+)
 from cpuperformanceraytracer_tpu_torch.render.driver import OfflineRenderer
 from cpuperformanceraytracer_tpu_torch.render.frame import frame_blend
 from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
@@ -399,3 +404,89 @@ def test_new_wrappers_reject_bad_inputs(cuda_device):
                            torch.zeros((3, 16, 64), device=dev), 1.0)
     with pytest.raises(ValueError):
         tonemap(torch.zeros((4, 16, 64), device=dev))
+
+
+# ---- the probe kernels (K6-K8) ----------------------------------------
+
+
+@pytest.mark.parametrize("hw", [(64, 256), (7, 45)])
+def test_trace_dots_matches_plain(cuda_device, hw):
+    xn, Bn = trace_probe.probe_inputs(*hw)
+    x, B = torch.from_numpy(xn).to(cuda_device), torch.from_numpy(Bn).to(cuda_device)
+    want = trace_probe.trace_dots_reference(x, B)
+    # the CUDA cores run the plain version's chains in its order
+    torch.testing.assert_close(trace_probe.trace_dots(x, B, "cuda_core"), want,
+                               rtol=1e-6, atol=0)
+    # 3xTF32 on the tensor cores: near f32 (one TF32 pass gives ~1e-3);
+    # the ragged 7x45 frame leaves a partial 16-pixel tile
+    got = trace_probe.trace_dots(x, B, "tensor_core")
+    assert trace_probe.max_rel_err(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("layout", ["one_plane", "three_planes", "packed"])
+def test_texel_gather_bit_equal(cuda_device, layout):
+    tex, rows, cols = gather_bench.bench_inputs(1)
+    texf = torch.from_numpy(tex.reshape(-1, 3)).to(cuda_device)
+    flat = torch.from_numpy(rows * gather_bench.W + cols).to(cuda_device)
+    flat[:3] = torch.tensor([-5, 0, 10 ** 7])          # clamped at both ends
+    planes = texf.t().contiguous()
+    table = {"one_plane": planes[:1], "three_planes": planes,
+             "packed": torch.cat([texf, texf[:, :1]], 1).contiguous()}[layout]
+    packed = layout == "packed"
+    got = gather_bench.texel_gather(table, flat, packed)
+    assert torch.equal(got, gather_bench.texel_gather_reference(table, flat, packed))
+
+
+@pytest.mark.parametrize("n", [5, 1024, 4099])
+@pytest.mark.parametrize("row", [128, 4])
+@pytest.mark.parametrize("mechanism", ["tma", "cp_async"])
+def test_row_copy_bit_equal(cuda_device, mechanism, row, n):
+    rng = np.random.default_rng(n)
+    table = torch.from_numpy(rng.random((4096, row), dtype=np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(-2, 4100, n, dtype=np.int32)).to(cuda_device)
+    got = overlap_probe.row_copy(table, idx, mechanism)
+    assert torch.equal(got, overlap_probe.row_copy_reference(table, idx))
+
+
+@pytest.mark.parametrize("n", [2048, 921600, 3])
+def test_dsmem_gather_bit_equal(cuda_device, n):
+    rng = np.random.default_rng(n)
+    table = torch.from_numpy(rng.random((256, 512), dtype=np.float32)).to(cuda_device)
+    rows = torch.from_numpy(rng.integers(-1, 257, n, dtype=np.int32)).to(cuda_device)
+    cols = torch.from_numpy(rng.integers(-1, 513, n, dtype=np.int32)).to(cuda_device)
+    got = overlap_probe.dsmem_gather(table, rows, cols)
+    assert torch.equal(got, overlap_probe.dsmem_gather_reference(table, rows, cols))
+
+
+def test_probe_entry_points_count_launches(cuda_device):
+    kernels = (trace_probe.trace_dots, gather_bench.texel_gather,
+               overlap_probe.row_copy, overlap_probe.dsmem_gather)
+    for k in kernels:
+        k.launches = 0
+    t = trace_probe.run(cuda_device, 16, 256, iters=2)
+    g = gather_bench.run(cuda_device, iters=2)
+    o = overlap_probe.run(cuda_device, "all", width=128, height=64)
+    assert all(k.launches > 0 for k in kernels)
+    assert t["max_rel_err"] < 1e-4
+    assert all(g["correct"].values())
+    assert all(o["p2"]["correct"].values()) and all(o["p3"]["correct"].values())
+
+
+def test_probe_wrappers_reject_bad_inputs(cuda_device):
+    dev = cuda_device
+    x = torch.zeros((8, 4, 16), device=dev)
+    with pytest.raises(ValueError):
+        trace_probe.trace_dots(x, torch.zeros((54, 8), device=dev), "mxu")
+    with pytest.raises(ValueError):
+        trace_probe.trace_dots(x[:7], torch.zeros((54, 8), device=dev))
+    idx = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        gather_bench.texel_gather(torch.zeros((10, 3), device=dev), idx, packed=True)
+    with pytest.raises(ValueError):
+        gather_bench.texel_gather(torch.zeros((1, 10), device=dev), idx.long())
+    with pytest.raises(ValueError):
+        overlap_probe.row_copy(torch.zeros((10, 6), device=dev), idx)
+    with pytest.raises(ValueError):
+        overlap_probe.row_copy(torch.zeros((10, 132), device=dev), idx)
+    with pytest.raises(ValueError):
+        overlap_probe.dsmem_gather(torch.zeros((128, 512), device=dev), idx, idx)

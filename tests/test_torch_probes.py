@@ -1,0 +1,277 @@
+"""The probes' plain versions (K6-K8) vs the JAX probe scripts and their
+contracts, on the CPU.
+
+- K6 (``probes.trace_probe``): ``trace_dots_reference`` vs the script's
+  own ``kernel_vpu`` and ``kernel_mxu`` (``scripts/mxu_trace_probe.py``,
+  loaded from its path) through ``pl.pallas_call(..., interpret=True)``
+  on one (8, 256) block of the script's input, max relative error (the
+  script's metric, max |a - b| / max |b|) under 1e-5; and a plain
+  emulation of the tensor-core kernel's 3xTF32 split (TF32 rounding by
+  mantissa mask, as ``cvt.rna.tf32.f32``) within 1e-5 of the plain
+  version, where one TF32 pass is not.
+- K7, K8a, K8b: ``gather_bench.py`` runs its race at import and the
+  overlap probe's kernels are closures, so none can be imported; the
+  plain versions are held to the contracts with numpy and with eager
+  ``jnp.take_along_axis`` (the Pallas bodies' own operation) on the same
+  seeded inputs, bit for bit.
+- The three probe entry points on the CPU (``--backend torch``).
+"""
+
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import torch_port_helpers  # noqa: F401  (one intra-op thread per worker)
+from cpuperformanceraytracer_tpu_torch.kernels import _build
+from cpuperformanceraytracer_tpu_torch.probes import (
+    gather_bench,
+    overlap_probe,
+    trace_probe,
+)
+
+SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "scripts")
+
+
+def _load_script(name):
+    spec = importlib.util.spec_from_file_location(
+        f"probe_script_{name}", os.path.join(SCRIPTS, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)        # builds B; nothing else runs
+    return mod
+
+
+@pytest.fixture(scope="module")
+def trace_block():
+    """One (8, 256) block of the script's input, its B, and the JAX
+    kernels' outputs on it (each traced once: the VPU body is 9 x 54
+    unrolled chains)."""
+    m = _load_script("mxu_trace_probe")
+    x_full, B = trace_probe.probe_inputs()
+    np.testing.assert_array_equal(B, np.asarray(m.B))
+    x = np.ascontiguousarray(x_full[:, :m.BH, :m.BW])
+    outs = {}
+    for name, kern in (("vpu", m.kernel_vpu), ("mxu", m.kernel_mxu)):
+        call = pl.pallas_call(
+            kern, grid=(1, 1),
+            out_shape=jax.ShapeDtypeStruct((m.BH, m.BW), jnp.float32),
+            in_specs=[pl.BlockSpec((m.NF, m.BH, m.BW), lambda i, j: (0, i, j)),
+                      pl.BlockSpec((m.NCOL, m.NF), lambda i, j: (0, 0))],
+            out_specs=pl.BlockSpec((m.BH, m.BW), lambda i, j: (i, j)),
+            interpret=True)
+        outs[name] = np.array(call(jnp.asarray(x), m.B))
+    return x, B, outs
+
+
+def test_probe_constants_match_script(trace_block):
+    m = _load_script("mxu_trace_probe")
+    assert (trace_probe.H, trace_probe.W, trace_probe.NF, trace_probe.NCOL,
+            trace_probe.REPEAT) == (m.H, m.W, m.NF, m.NCOL, m.REPEAT)
+
+
+@pytest.mark.parametrize("body", ["vpu", "mxu"])
+def test_trace_dots_reference_matches_jax(trace_block, body):
+    x, B, outs = trace_block
+    got = trace_probe.trace_dots(torch.from_numpy(x), torch.from_numpy(B))
+    err = trace_probe.max_rel_err(got, torch.from_numpy(outs[body]))
+    assert err < 1e-5, err
+
+
+def _tf32(v):
+    """cvt.rna.tf32.f32: 10 mantissa bits, nearest, ties away from zero."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _trace_dots_tf32(x, B, passes):
+    """The tensor-core kernel's arithmetic in plain torch: every segment
+    U = x^T B^T of TF32 parts, 3 passes (lo*hi + hi*lo + hi*hi) or 1."""
+    def parts(v):
+        hi = _tf32(v)
+        return hi, _tf32(v - hi)
+
+    f = x.reshape(8, -1).t().contiguous()            # (P, 8)
+    bhi, blo = parts(B.t().contiguous())              # (8, 54)
+    acc = torch.zeros(f.shape[0])
+    for _ in range(trace_probe.REPEAT):
+        fhi, flo = parts(f)
+        u = fhi @ bhi
+        if passes == 3:
+            u = (flo @ bhi + fhi @ blo) + u
+        acc = acc + u[:, 0] * u[:, 1] - u[:, 2]
+        acc = acc + u[:, 3:].sum(1)
+        f = torch.cat([(acc * 1e-6)[:, None], f[:, 1:]], 1)
+    return acc.reshape(x.shape[1:])
+
+
+def test_tensor_core_split_precision(trace_block):
+    x, B, _ = trace_block
+    x, B = torch.from_numpy(x), torch.from_numpy(B)
+    want = trace_probe.trace_dots_reference(x, B)
+    assert trace_probe.max_rel_err(_trace_dots_tf32(x, B, 3), want) < 1e-5
+    # one TF32 pass keeps ~3 digits: the split is what makes it f32-like
+    assert trace_probe.max_rel_err(_trace_dots_tf32(x, B, 1), want) > 1e-4
+
+
+def test_tf32_rounding():
+    v = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                      -(1.0 + 2 ** -11), 3.0e-3])
+    got = _tf32(v)
+    assert got[0] == 1.0
+    assert got[1] == 1.0 + 2 ** -10           # a tie rounds away from zero
+    assert got[2] == 1.0 + 2 ** -9
+    assert got[3] == -(1.0 + 2 ** -10)
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+
+
+def _race_inputs(seed=0):
+    tex, rows, cols = gather_bench.bench_inputs(seed)
+    flat = rows * gather_bench.W + cols
+    return tex.reshape(-1, 3), rows, cols, flat
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_texel_gather_planar_matches_take_along_axis(seed):
+    texf, _, _, flat = _race_inputs(seed)
+    plane = np.ascontiguousarray(texf[:, 0])
+    got = gather_bench.texel_gather(torch.from_numpy(plane)[None],
+                                    torch.from_numpy(flat))[0].numpy()
+    np.testing.assert_array_equal(got, plane[flat])
+    # pallas_tga's body on its first (8, 256) block of the (3600, 256) indices
+    idx2 = flat.reshape(-1, 256)[:8]
+    tab = jnp.asarray(plane).reshape(1, -1)
+    tga = jnp.take_along_axis(jnp.broadcast_to(tab, (8, tab.shape[1])),
+                              jnp.asarray(idx2), axis=1)
+    np.testing.assert_array_equal(got[:8 * 256].reshape(8, 256), np.asarray(tga))
+    planes = torch.from_numpy(np.ascontiguousarray(texf.T))
+    got3 = gather_bench.texel_gather(planes, torch.from_numpy(flat)).numpy()
+    np.testing.assert_array_equal(got3, texf[flat].T)
+
+
+def test_texel_gather_packed_and_clamped():
+    texf, _, _, flat = _race_inputs(1)
+    packed = np.concatenate([texf, np.full((len(texf), 1), 7.0, np.float32)], 1)
+    idx = flat[:1000].copy()
+    idx[:2] = [-4, 10 ** 7]
+    got = gather_bench.texel_gather(torch.from_numpy(packed),
+                                    torch.from_numpy(idx), packed=True).numpy()
+    np.testing.assert_array_equal(got, packed[np.clip(idx, 0, len(texf) - 1)])
+
+
+def test_gather_bench_inputs_distribution():
+    tex, rows, cols = gather_bench.bench_inputs(0)
+    assert tex.shape == (256, 512, 3) and tex.dtype == np.float32
+    assert rows.shape == cols.shape == (1280 * 720,) and rows.dtype == np.int32
+    assert rows.min() == 0 and rows.max() == 255
+    assert cols.min() == 0 and cols.max() == 511
+    assert 0.0 <= tex.min() and tex.max() < 1.0
+
+
+def _row_copy_serial(table, idx):
+    """The P2 kernel, literally: row idx[i] into slot i % 8, in order."""
+    buf = np.zeros((8, table.shape[1]), np.float32)
+    for i, r in enumerate(idx):
+        buf[i % 8] = table[min(max(r, 0), len(table) - 1)]
+    return buf
+
+
+@pytest.mark.parametrize("n", [5, 8, 256, 1027, 4096])
+@pytest.mark.parametrize("row", [128, 4])
+def test_row_copy_contract(row, n):
+    rng = np.random.default_rng(n + row)
+    table = rng.random((2048, row), dtype=np.float32)
+    idx = rng.integers(-3, 2051, n, dtype=np.int32)
+    got = overlap_probe.row_copy(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), _row_copy_serial(table, idx))
+
+
+@pytest.mark.parametrize("queries", [(16, 128), (1280 * 720,)])
+def test_dsmem_gather_matches_take_along_axis(queries):
+    rng = np.random.default_rng(len(queries))
+    table = rng.random((256, 512), dtype=np.float32)
+    rows = rng.integers(0, 256, queries, dtype=np.int32)
+    cols = rng.integers(0, 512, queries, dtype=np.int32)
+    got = overlap_probe.dsmem_gather(torch.from_numpy(table), torch.from_numpy(rows),
+                                     torch.from_numpy(cols)).numpy()
+    np.testing.assert_array_equal(got, table[rows, cols])
+    if queries == (16, 128):   # the P3 kernel's body, eagerly
+        flat = jnp.asarray(table).reshape(1, -1)
+        want = jnp.take_along_axis(jnp.broadcast_to(flat, (16, flat.shape[1])),
+                                   jnp.asarray(rows * 512 + cols), axis=1)
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_dsmem_cluster_partition():
+    """K8b keeps rows 64 r .. 64 r + 63 in block rank r of a cluster of 4
+    and reads row `row` at rank row // 64, local row row % 64."""
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.random((256, 512), dtype=np.float32))
+    r = torch.from_numpy(rng.integers(-2, 258, 4096, dtype=np.int32))
+    c = torch.from_numpy(rng.integers(-2, 514, 4096, dtype=np.int32))
+    row = r.clamp(0, 255).long()
+    per = overlap_probe.TH // overlap_probe.CLUSTER
+    assert per == 64 and per * 512 * 4 == 128 * 1024   # 128 KB a block
+    parts = table.reshape(overlap_probe.CLUSTER, per, 512)   # one per rank
+    want = parts[row // per, row % per, c.clamp(0, 511).long()]
+    assert torch.equal(overlap_probe.dsmem_gather(table, r, c), want)
+
+
+def test_probe_library_builds_apart():
+    """The probe sources build into their own library; the render
+    library's sources (and so its hash) do not include them."""
+    render = {p.name for p in _build.RENDER.src_dir.glob("*.cu")}
+    probes = {p.name for p in _build.PROBES.src_dir.glob("*.cu")}
+    assert probes == {"trace_dots.cu", "texel_gather.cu", "row_copy.cu",
+                      "dsmem_gather.cu"}
+    assert not render & probes
+    names = {n for n, _ in _build.PROBES.signatures}
+    assert names == {"cprt_trace_dots", "cprt_texel_gather", "cprt_row_copy",
+                     "cprt_dsmem_gather"}
+
+
+def test_wrappers_raise_off_the_cpu_and_cuda():
+    meta = torch.zeros((8, 4, 16), device="meta")
+    with pytest.raises(ValueError):
+        trace_probe.trace_dots(meta, torch.zeros((54, 8), device="meta"))
+    with pytest.raises(ValueError):
+        trace_probe.trace_dots(torch.zeros((8, 4, 16)), torch.zeros((54, 8)), "mxu")
+    idx = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        gather_bench.texel_gather(torch.zeros((1, 8), device="meta"), idx)
+    with pytest.raises(ValueError):
+        overlap_probe.row_copy(torch.zeros((8, 4), device="meta"), idx)
+    with pytest.raises(ValueError):
+        overlap_probe.dsmem_gather(torch.zeros((256, 512), device="meta"), idx, idx)
+
+
+def test_trace_probe_entry_point_cpu(capsys):
+    assert trace_probe.main(["--backend", "torch", "--height", "8",
+                             "--width", "32", "--iters", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "ms/frame-equivalent" in out
+    assert "max rel err tensor-core vs cuda-core: 0.000e+00" in out
+
+
+def test_gather_bench_entry_point_cpu(capsys):
+    assert gather_bench.main(["--backend", "torch", "--iters", "1"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("correct: True") == 6 and "False" not in out
+
+
+def test_overlap_probe_entry_points_cpu(capsys):
+    dev = torch.device("cpu")
+    p1 = overlap_probe.p1_stream_overlap(dev, 32, 16, iters=1)
+    assert set(p1["ms"]) == {"trivial", "kernel", "gather", "together"}
+    assert p1["queries"] == 32 * 16
+    p2 = overlap_probe.p2_row_copy_cost(dev, iters=1)
+    assert len(p2["correct"]) == 12 and all(p2["correct"].values())
+    p3 = overlap_probe.p3_dsmem_gather(dev, iters=1)
+    assert all(p3["correct"].values())
+    out = capsys.readouterr().out
+    assert "P1 together < kernel + gather" in out and "ns/copy" in out
