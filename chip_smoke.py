@@ -12,7 +12,12 @@ Phases, one line each; any failure raises and the exit code is not 0:
    256) at 1280x720, 8 bounces, robust: the rgb and miss-throughput means
    within 1e-2 relative, and on every one of the 12 planes (the miss
    direction and env jitter where the ``missed`` flags agree, and the
-   flags themselves) under 0.1% of pixels off by > 1e-3;
+   flags themselves) under 0.1% of pixels off by > 1e-3; kernel A's lane
+   utilisation at 720p (lanes that run a segment over the lane slots of
+   all warp iterations): counted by the persistent kernel, and for one
+   thread per pixel from the plain version's per-pixel live masks (a
+   warp is 32 neighbouring pixels of a row and runs until its longest
+   path ends); its ptxas registers and spills, and its resident blocks;
 4. kernel B (env resolve + accumulate) vs its plain version on the same
    planes: texel indices equal on >= 99.9% of pixels, the accumulator
    allclose (rtol 1e-5) where they are equal; then the chain kernel A ->
@@ -38,7 +43,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
    1280x720 pixels and 512x256 texels, on kernel B's indices of phase 4:
    cot_mt exactly equal, each texel's sum of k values within
    (k - 1) * 2^-24 * sum|v| (at least 8 * 2^-24 * sum|v|) of a float64
-   index_add_;
+   index_add_; the busiest texel with and without the zero addends (which
+   the kernel skips), and D and index_add_ with the stream held full;
 8. the training path: fwd_bwd_benchmark(backend="cuda") at the bench
    workload (counter RNG, params albedo + 0.05, sphere centers + 0.1 and
    every env texel), 2 warmup + 64 timed steps in 2 spans; kernels C and
@@ -199,6 +205,28 @@ def device_frame_ms(step, n: int, sleep_cycles: int = 200_000_000,
     return total / (n * windows)
 
 
+def ptxas_of(log: str, kernel: str) -> str:
+    """ptxas's registers and spills for the entry functions whose mangled
+    name holds ``kernel``, from an nvcc -Xptxas -v log."""
+    found, current = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            current = kernel in ln
+        elif current and ("registers" in ln or "spill" in ln):
+            found.append(ln.split(":", 1)[-1].strip() if "registers" in ln
+                         else ln.strip())
+    return " | ".join(found) or "no ptxas log (the library was already built)"
+
+
+def lane_utilisation(masks, width: int) -> float:
+    """Live segments over 32 x each warp's longest path, for one thread
+    per pixel with a warp on 32 neighbouring pixels of a row."""
+    live = torch.stack(masks).sum(0)                       # (H, W)
+    pad = (-width) % 32
+    warps = torch.nn.functional.pad(live, (0, pad)).reshape(live.shape[0], -1, 32)
+    return live.sum().item() / (32 * warps.amax(-1).sum().item())
+
+
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.double() - want.double()).norm()
             / want.double().norm()).item()
@@ -298,6 +326,7 @@ def phase_kernel_d(dev, planes, idx, tex) -> dict:
         env_backward,
         env_backward_reference,
     )
+    from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
 
     gen = torch.Generator(device=dev).manual_seed(1)
     g = torch.randn((3,) + tuple(idx.shape), device=dev, generator=gen)
@@ -333,21 +362,30 @@ def phase_kernel_d(dev, planes, idx, tex) -> dict:
         fixed = 4 * 2.0 ** -23 * mag
         over_fixed += int((err > fixed).sum())
         lib_over += int(((library[:, c].double() - exact).abs() > fixed).sum())
+    nonzero = (vals != 0).any(1)
+    busiest_nz = int(torch.bincount(flat[nonzero], minlength=n_tex).max())
     ms = cuda_ms(lambda: env_backward(g, idx, mt, tex), 200)
     plain_ms = cuda_ms(lambda: env_backward_reference(g, idx, mt, tex), 20)
     scatter = torch.zeros((n_tex, 3), device=dev)
     library_ms = cuda_ms(lambda: scatter.index_add_(0, flat, vals), 200)
+    held_ms = device_ms(lambda: env_backward(g, idx, mt, tex), 200, dev)
+    library_held_ms = device_ms(lambda: scatter.index_add_(0, flat, vals), 200,
+                                dev)
     n_px = idx.numel()
     bnd = bound(n_px * (12 + 8 + 12 + 12) + 2 * 3 * 4 * n_tex, 9 * n_px)
     phase("kernel D", f"cot_mt equal; texel sums within {worst:.3g} of the "
-          f"(k-1)*2^-24*sum|v| bound (max abs err {max_err:.3g}; up to "
-          f"{int(count.max())} pixels on one texel; texel sums over "
+          f"(k-1)*2^-24*sum|v| bound (max abs err {max_err:.3g}; busiest "
+          f"texel {int(count.max())} pixels, {busiest_nz} with a nonzero "
+          f"addend ({int(nonzero.sum())} of {n_px} pixels); texel sums over "
           f"4*2^-23*sum|v|: {over_fixed} here, {lib_over} with index_add_); "
           f"{ms:.4f} ms "
           f"vs plain {plain_ms:.4f} ms vs index_add_ {library_ms:.4f} ms; "
+          f"held full {held_ms:.4f} ms vs index_add_ {library_held_ms:.4f} ms; "
           f"bound {bnd[0]:.4f} ms ({bnd[1]})")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound=bnd,
-                library_ms=library_ms)
+                library_ms=library_ms, held_ms=held_ms,
+                library_held_ms=library_held_ms,
+                busiest_texel={"all": int(count.max()), "nonzero": busiest_nz})
 
 
 def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
@@ -951,6 +989,7 @@ def main() -> int:
         plane_mismatch,
         render_planes,
         render_planes_reference,
+        resident_blocks,
     )
     from cpuperformanceraytracer_tpu_torch.render.driver import OfflineRenderer
     from cpuperformanceraytracer_tpu_torch.render.frame import frame_blend
@@ -995,8 +1034,9 @@ def main() -> int:
     scene, cam = scene_by_name(cfg.scene, device=dev)
     tables = pack_tables(scene, cam, cfg, dev)
     planes = render_planes(tables, cfg, 0)
-    live_a = []
-    planes_ref = render_planes_reference(tables, cfg, 0, live_segments=live_a)
+    live_a, masks_a = [], []
+    planes_ref = render_planes_reference(tables, cfg, 0, live_segments=live_a,
+                                         live_masks=masks_a)
     torch.cuda.synchronize()
     for c in (0, 1, 2, 6, 7, 8):
         robust(planes[c], planes_ref[c], f"kernel A {PLANE_NAMES[c]}", 1e-3)
@@ -1007,11 +1047,20 @@ def main() -> int:
     glass_err = (planes[:3] - planes_ref[:3]).abs().max().item()
     ms_a = cuda_ms(lambda: render_planes(tables, cfg, 0), 20)
     plain_ms_a = cuda_ms(lambda: render_planes_reference(tables, cfg, 0), 3, 1)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    render_planes(tables, cfg, 0, lane_stats=stats)
+    util_a = stats[0].item() / stats[1].item()
+    util_pixel = lane_utilisation(masks_a, cfg.width)
+    del masks_a
+    per_sm, sms = resident_blocks(tables)
+    regs_a = ptxas_of(builds[0].log, "render_planes_kernel")
     phase("kernel A", f"cornell strict ok (max abs err {max_err_a:.3g}); "
           f"glass 1280x720 robust ok on 12 planes (worst {worst} "
           f"{off[worst]:.5%} px off; missed flags differ on "
           f"{off['missed']:.5%}; rgb max abs err {glass_err:.3g}); "
-          f"{ms_a:.3f} ms vs plain {plain_ms_a:.3f} ms")
+          f"{ms_a:.3f} ms vs plain {plain_ms_a:.3f} ms; lane utilisation "
+          f"{util_a:.4f} (one thread per pixel: {util_pixel:.4f}); "
+          f"{per_sm} blocks per SM x {sms} SMs; ptxas: {regs_a}")
 
     # ---- phase 4: kernel B vs plain on the same planes ------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1111,7 +1160,9 @@ def main() -> int:
              ms=ms_a, plain_ms=plain_ms_a, bound=bound_a, library_ms=None,
              launches_by_path={"forward": launches["render_planes"],
                                "training": t["launches"]["render_planes"]},
-             live_segments=sum(live_a)),
+             live_segments=sum(live_a), lane_utilisation=util_a,
+             lane_utilisation_one_thread_per_pixel=util_pixel,
+             resident_blocks_per_sm=per_sm, ptxas=regs_a),
         dict(name="env_accumulate",
              source="cpuperformanceraytracer_tpu_torch/csrc/env_accumulate.cu",
              replaces="cpuperformanceraytracer_tpu/kernels/megakernel.py:1162",

@@ -50,8 +50,9 @@ class RenderConfig:
     # fingerprint of a checkpoint, as in the JAX package
     accumulate: bool = True
     exposure: float = 1.0
-    # per-thread exit of a dead path's remaining segments where no later
-    # draw depends on them; the output is identical either way
+    # kept for parity with the JAX config; the port's kernel A always
+    # ends a dead path where no later draw depends on it (the output is
+    # identical either way), so the field changes nothing
     early_exit: bool = True
 
     backend: str = "cuda"                      # or "torch"

@@ -379,7 +379,7 @@ extern "C" int cprt_bwd_tables(const float* quad_tbl, int nq, const float* sph_t
     if (bounces + 1 > MAX_SEGMENTS) return (int)cudaErrorInvalidValue;
     Params P{width, height, frame, sample0, 1, bounces, nq, ns, nm,
              1, env_draws, env_none, roulette, zangle, jitter,
-             1, aspect, 1.0f};
+             aspect, 1.0f};
     const Cells C = cell_layout(nq, ns, nm);
     const size_t smem = (size_t)(scene_smem_floats(nq, ns, nm) + C.n) * sizeof(float);
     const dim3 block(32, 4);

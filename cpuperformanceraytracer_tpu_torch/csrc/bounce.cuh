@@ -48,7 +48,6 @@ struct Params {
     int roulette;     // 0 off, 1 terminate, 2 v4_quirk
     int zangle;       // unit-vector sampler: 1 zangle (2 draws), 0 normalized3
     int jitter;
-    int early_exit;
     float aspect;     // height/width, rounded once from float64
     float inv_spp;
 };

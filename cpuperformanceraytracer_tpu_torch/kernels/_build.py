@@ -46,9 +46,13 @@ _SIGNATURES = {
         _P, _I, _P, _I, _P, _I, _P,      # tables and their row counts
         _P,                               # out (12, H, W)
         _I, _I, _I, _I, _I, _I,           # width height frame sample0 spp bounces
-        _I, _I, _I, _I, _I, _I, _I,       # counter env_draws env_none roulette zangle jitter early_exit
+        _I, _I, _I, _I, _I, _I,           # counter env_draws env_none roulette zangle jitter
         _F, _F,                           # aspect inv_spp
+        _P, _P,                           # work counter (1 int32), lane stats (2 u64, nullable)
         _P,                               # stream
+    ],
+    "cprt_render_planes_resident": [
+        _I, _I, _I, _P, _P,               # NQ NS NM, out: blocks per SM, SMs
     ],
     "cprt_env_accumulate": [
         _P, _I,                           # planes (12, H, W), H*W
@@ -71,6 +75,7 @@ _SIGNATURES = {
         _P, _P, _P,                       # texture r g b
         _P, _P, _P, _P,                   # cot_mt (3, n), d_r d_g d_b
         _I,                               # n
+        _P, _I,                           # texel sums scratch (T, 4), T
         _P,                               # stream
     ],
     "cprt_env_lookup": [

@@ -12,8 +12,13 @@ index ``idx`` (H, W) int64, kernel A's miss-throughput planes ``mt``
     d_tex  3 x (T,)  : d_tex[c][idx[p]] += g[c][p] * mt[c][p]
 
 On the card (``csrc/env_backward.cu``) the texel sum is one pass of f32
-atomics, so the order of its sums varies from run to run; the plain
-version uses ``index_add_``.
+atomics: a warp sums each run of equal indices first, skips the runs
+whose sums are +0.0 or -0.0 (a never-missed pixel has mt = 0), so the
+set of addends shrinks but the sum does not change, and adds the three
+channels of a run with one vector atomic into a (T, 4) scratch that a
+second pass copies into the planes; the order in which the runs arrive
+varies from run to run. The plain version uses ``index_add_`` over
+every addend.
 
 ``env_backward`` is the wrapper: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (counted in ``env_backward.launches``);
@@ -54,6 +59,8 @@ def _check(g, idx, mt, texture):
         if (t.shape != (n_tex,) or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != dev):
             bad.append(f"texture plane {tuple(t.shape)} {t.dtype} {t.device}")
+    if n_tex >= 2 ** 31:
+        bad.append(f"{n_tex} texels (the kernel takes < 2^31)")
     if bad:
         raise ValueError("env_backward: " + "; ".join(bad))
 
@@ -65,13 +72,16 @@ def env_backward(g, idx, mt, texture):
     if g.device.type != "cuda":
         raise ValueError(f"env_backward: unsupported device {g.device}")
     _check(g, idx, mt, texture)
+    n_tex = texture.r.numel()
     cot_mt = torch.empty_like(g)
-    d_tex = tuple(torch.zeros_like(t) for t in (texture.r, texture.g, texture.b))
+    d_tex = torch.empty((3, n_tex), dtype=torch.float32, device=g.device).unbind(0)
+    sums = torch.empty((n_tex, 4), dtype=torch.float32, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = load_library().cprt_env_backward(
         g.data_ptr(), idx.data_ptr(), mt.data_ptr(), texture.r.data_ptr(),
         texture.g.data_ptr(), texture.b.data_ptr(), cot_mt.data_ptr(),
-        *(d.data_ptr() for d in d_tex), idx.numel(), stream)
+        *(d.data_ptr() for d in d_tex), idx.numel(), sums.data_ptr(), n_tex,
+        stream)
     check(err, "env_backward")
     env_backward.launches += 1
     return cot_mt, d_tex

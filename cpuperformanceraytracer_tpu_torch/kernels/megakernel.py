@@ -30,6 +30,12 @@ into the kernel: the sphere normal is ``hit_rel * (sgn * (1/r))`` with
 1/r rounded from float64 (as a Python constant is), and the image
 aspect ``height/width`` is rounded from float64.
 
+On the card the kernel is persistent and regenerates paths: a lane whose
+pixel has ended takes the next pixel, so a warp's lanes stay busy while
+its paths end at different segments (``csrc/megakernel.cu``).
+``RenderConfig.early_exit`` is kept for parity with the JAX config and
+changes nothing: a path that ends frees its lane.
+
 ``render_planes`` is the wrapper: a CPU tensor takes the plain version,
 a CUDA tensor launches ``csrc/megakernel.cu`` (and counts the launch in
 ``render_planes.launches``); any other device raises.
@@ -122,13 +128,14 @@ def _inv_spp(cfg) -> float:
 
 
 def render_planes_reference(tables, cfg, frame: int, sample0: int = 0,
-                            live_segments=None) -> torch.Tensor:
+                            live_segments=None, live_masks=None) -> torch.Tensor:
     """Plain-torch kernel A: the per-object blend chain of the TPU
     kernel, vectorised over all pixels, every segment run with dead
     paths masked (the kernel's early exit does not change the output).
     Returns (12, H, W) f32 on the tables' device. A list passed as
     ``live_segments`` receives the number of live paths at the start of
-    each segment (the segments the kernel runs)."""
+    each segment (the segments the kernel runs); one passed as
+    ``live_masks`` receives the (H, W) bool mask of those paths."""
     quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
     dev = quad_tbl.device
     h, w = cfg.height, cfg.width
@@ -286,8 +293,10 @@ def render_planes_reference(tables, cfg, frame: int, sample0: int = 0,
             fx, fy = frag_x + (jx - 0.5), frag_y + (jy - 0.5)
         else:
             fx, fy = frag_x, frag_y
-        u = (fx / float(w)) * 2.0 - 1.0
-        v = ((fy / float(h)) * 2.0 - 1.0) * aspect
+        # tensor divisors: on CUDA torch divides by a Python scalar as a
+        # multiply by its reciprocal, which is not the kernel's division
+        u = (fx / torch.full_like(fx, float(w))) * 2.0 - 1.0
+        v = ((fy / torch.full_like(fy, float(h))) * 2.0 - 1.0) * aspect
         pos = Vec3(zeros + cam_tbl[0], zeros + cam_tbl[1], zeros + cam_tbl[2])
         target = Vec3(u, v, zeros + cam_tbl[4] * cam_tbl[3])
         return pos, safe_normalize(target), rng
@@ -302,6 +311,8 @@ def render_planes_reference(tables, cfg, frame: int, sample0: int = 0,
         for _ in range(cfg.bounces + 1):
             if live_segments is not None:
                 live_segments.append(int(s["alive"].sum()))
+            if live_masks is not None:
+                live_masks.append(s["alive"].clone())
             bounce(s)
         return s
 
@@ -345,10 +356,13 @@ def _check_tables(tables):
 
 
 def render_planes(tables, cfg, frame: int, sample0: int = 0,
-                  out=None) -> torch.Tensor:
+                  out=None, lane_stats=None) -> torch.Tensor:
     """Kernel A wrapper: (12, H, W) f32 planes for one frame, written into
     ``out`` when given (a contiguous (12, H, W) f32 tensor, e.g. one
-    sample's slot of a (spp, 12, H, W) buffer)."""
+    sample's slot of a (spp, 12, H, W) buffer). ``lane_stats``, a zeroed
+    (2,) int64 tensor on the card, receives the lanes that ran a bounce
+    segment and the lane slots of all the kernel's warp iterations (their
+    ratio is its lane utilisation); the CPU path ignores it."""
     quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
     if quad_tbl.device.type == "cpu":
         planes = render_planes_reference(tables, cfg, frame, sample0)
@@ -364,7 +378,16 @@ def render_planes(tables, cfg, frame: int, sample0: int = 0,
           or not out.is_contiguous() or out.device != quad_tbl.device):
         raise ValueError(f"render_planes: out {tuple(out.shape)} {out.dtype} "
                          f"{out.device}, want {shape} contiguous f32")
+    if lane_stats is not None and (
+            lane_stats.shape != (2,) or lane_stats.dtype != torch.int64
+            or lane_stats.device != quad_tbl.device):
+        raise ValueError(f"render_planes: lane_stats {tuple(lane_stats.shape)} "
+                         f"{lane_stats.dtype} {lane_stats.device}, want (2,) "
+                         "int64 on the tables' device")
     env_draws = cfg.env_mode != "none" and cfg.env_sampling == "stochastic"
+    # the persistent kernel's work counter, zeroed on the stream by the
+    # entry point before the launch
+    counter = torch.empty(1, dtype=torch.int32, device=quad_tbl.device)
     stream = torch.cuda.current_stream(quad_tbl.device).cuda_stream
     err = load_library().cprt_render_planes(
         quad_tbl.data_ptr(), nq, sph_tbl.data_ptr(), ns, mat_tbl.data_ptr(),
@@ -373,14 +396,25 @@ def render_planes(tables, cfg, frame: int, sample0: int = 0,
         int(cfg.rng == "counter"), int(env_draws),
         int(cfg.env_mode == "none"), _ROULETTE[cfg.roulette],
         int(cfg.unit_vector_sampler == "zangle"), int(cfg.jitter),
-        int(cfg.early_exit), ctypes.c_float(_aspect(cfg)),
-        ctypes.c_float(_inv_spp(cfg)), stream)
+        ctypes.c_float(_aspect(cfg)), ctypes.c_float(_inv_spp(cfg)),
+        counter.data_ptr(),
+        None if lane_stats is None else lane_stats.data_ptr(), stream)
     check(err, "render_planes")
     render_planes.launches += 1
     return out
 
 
 render_planes.launches = 0
+
+
+def resident_blocks(tables) -> tuple:
+    """(blocks per SM, SMs): the persistent kernel A's grid on the current
+    card is their product (fewer blocks when the frame is smaller)."""
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    check(load_library().cprt_render_planes_resident(
+        tables[0].shape[0], tables[1].shape[0], tables[2].shape[0],
+        ctypes.byref(per_sm), ctypes.byref(sms)), "resident_blocks")
+    return per_sm.value, sms.value
 
 
 PLANE_NAMES = ("r", "g", "b", "md_x", "md_y", "md_z", "mt_x", "mt_y",

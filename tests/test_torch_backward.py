@@ -175,7 +175,7 @@ extern "C" int host_bwd_tables(const float* q, int nq, const float* s, int ns,
                                int env_none, int roulette, int zangle, int jitter,
                                float aspect) {
     Params P{width, height, frame, 0, 1, bounces, nq, ns, nm, 1, env_draws,
-             env_none, roulette, zangle, jitter, 1, aspect, 1.0f};
+             env_none, roulette, zangle, jitter, aspect, 1.0f};
     std::vector<float> sm(scene_smem_floats(nq, ns, nm));
     float* quads = sm.data();
     float* sph = quads + nq * QUAD_COLS;

@@ -83,6 +83,8 @@ def _tables(name, cfg, dev):
                                          ("wang", "zangle")])
 def test_megakernel_cornell_strict(cuda_device, rng, sampler, roulette,
                                    early_exit):
+    # early_exit only mirrors the JAX config: both values give the planes
+    # of the plain version
     cfg = RenderConfig(width=128, height=32, bounces=3, spp=2,
                        scene="cornell_box", env_mode="none", rng=rng,
                        unit_vector_sampler=sampler, roulette=roulette,
@@ -240,6 +242,111 @@ def test_env_backward_matches_plain(cuda_device):
     assert torch.equal(cot, cot_w)
     for a, b in zip(d, d_w):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _texel_sums_within_bound(d, g, idx, mt):
+    """Each texel's sum of k addends within (k - 1) * 2^-24 * sum|v| (at
+    least 8 * 2^-24 * sum|v|) of a float64 sum, plus 2^-126 per add (f32
+    atomics flush subnormals): the bound of chip_smoke.py's phase 7. A
+    texel with a NaN addend is NaN on both sides."""
+    flat = idx.reshape(-1)
+    n_tex = d[0].numel()
+    count = torch.bincount(flat, minlength=n_tex).double()
+    allow = torch.clamp(count - 1.0, min=8.0) * 2.0 ** -24
+    for c in range(3):
+        v = (g[c] * mt[c]).reshape(-1).double()
+        exact = torch.zeros(n_tex, dtype=torch.float64, device=v.device)
+        exact.index_add_(0, flat, v)
+        mag = torch.zeros_like(exact).index_add_(0, flat, v.abs())
+        got = d[c].double()
+        assert torch.equal(got.isnan(), exact.isnan()), c
+        ok = ~exact.isnan()
+        err = (got[ok] - exact[ok]).abs()
+        assert (err <= allow[ok] * mag[ok] + 2.0 * count[ok] * 2.0 ** -126).all(), c
+
+
+def _kernel_d_inputs(case, dev):
+    rng = np.random.default_rng(11)
+    h, w, n_tex = (7, 37, 64) if case == "ragged" else (32, 256, 512)
+    idx = rng.integers(0, n_tex, (h, w))
+    g = rng.standard_normal((3, h, w)).astype(np.float32)
+    mt = rng.random((3, h, w)).astype(np.float32)
+    if case == "one_texel":
+        idx[:] = 5
+    elif case == "alternating":
+        idx = np.broadcast_to(np.arange(w) % 2 * 7, (h, w)).copy()
+    elif case == "runs":  # runs of random lengths, as a frame's neighbouring pixels
+        idx = np.repeat(rng.integers(0, n_tex, h * w), rng.integers(1, 40, h * w))
+        idx = idx[:h * w].reshape(h, w)
+    elif case == "zero_mt":
+        mt[:] = 0.0
+    elif case == "signed_zeros_nan":
+        mt[:, :, ::3] = 0.0
+        mt[:, :, 1::3] = -0.0
+        mt[1, 3, 4] = np.nan
+        idx[3, 4] = idx[0, 0]
+    tex = texture_from_array(rng.random((n_tex // 8, 8, 3)).astype(np.float32), dev)
+    return (torch.from_numpy(g).to(dev), torch.from_numpy(idx).to(dev),
+            torch.from_numpy(mt).to(dev), tex)
+
+
+@pytest.mark.parametrize("case", ["one_texel", "alternating", "random", "runs",
+                                  "zero_mt", "signed_zeros_nan", "ragged"])
+def test_env_backward_warp_sums(cuda_device, case):
+    """Kernel D's warp-aggregated, zero-skipping scatter vs its plain
+    version: cot_mt equal, texel sums within the k-term bound. ``ragged``
+    has 7x37 pixels: not a multiple of 4 (the scalar loads) nor of 32."""
+    g, idx, mt, tex = _kernel_d_inputs(case, cuda_device)
+    cot, d = env_backward(g, idx, mt, tex)
+    cot_w, d_w = env_backward_reference(g, idx, mt, tex)
+    torch.cuda.synchronize()
+    assert torch.equal(cot, cot_w)
+    _texel_sums_within_bound(d, g, idx, mt)
+    for a, b in zip(d, d_w):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert not torch.signbit(a[a == 0]).any()  # never -0.0
+    if case == "zero_mt":
+        assert not any(x.any() for x in d)
+
+
+@pytest.mark.parametrize("rng", ["wang", "counter"])
+@pytest.mark.parametrize("hw,spp", [((32, 128), 1), ((7, 45), 2), ((4, 8), 1),
+                                    ((3, 5), 3), ((32, 256), 3)])
+def test_megakernel_regenerating_bit_equal(cuda_device, hw, spp, rng):
+    """The persistent kernel A on the diffuse cornell box: all 12 planes
+    bit-equal to the plain version, at sizes that are no multiple of 32
+    or 4, below one wave of the persistent grid (4x8 and 3x5 pixels), and
+    at spp > 1 with the wang stream (a dead sample still takes its
+    draws)."""
+    h, w = hw
+    cfg = RenderConfig(width=w, height=h, bounces=3, spp=spp,
+                       scene="cornell_box", env_mode="none", rng=rng)
+    tables = _tables("cornell_box", cfg, cuda_device)
+    got = render_planes(tables, cfg, 4, sample0=2)
+    want = render_planes_reference(tables, cfg, 4, sample0=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_megakernel_launches_in_a_row(cuda_device):
+    """The work counter is reset on the stream for every launch: launches
+    back to back, into one buffer and into two, each equal to the plain
+    version; lane_stats counts a utilisation in (0, 1]."""
+    cfg = RenderConfig(width=96, height=32, bounces=3, spp=2,
+                       scene="cornell_box", env_mode="none", rng="wang")
+    tables = _tables("cornell_box", cfg, cuda_device)
+    outs = torch.full((3, 12, 32, 96), -7.0, device=cuda_device)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    n0 = render_planes.launches
+    for frame, slot in ((1, 0), (2, 1), (2, 2)):
+        render_planes(tables, cfg, frame, out=outs[slot], lane_stats=stats)
+    torch.cuda.synchronize()
+    assert render_planes.launches == n0 + 3
+    assert torch.equal(outs[0], render_planes_reference(tables, cfg, 1))
+    assert torch.equal(outs[1], render_planes_reference(tables, cfg, 2))
+    assert torch.equal(outs[1], outs[2])
+    live, slots = stats.tolist()
+    assert 0 < live <= slots and slots % 32 == 0
 
 
 def test_render_frame_diff_matches_plain(cuda_device):

@@ -107,3 +107,39 @@ def test_wrapper_contract():
     meta = Texture(*(t.to("meta") for t in tex[:3]), tex.width, tex.height)
     with pytest.raises(ValueError, match="unsupported device"):
         env_backward(g.to("meta"), idx.to("meta"), mt.to("meta"), meta)
+
+
+def test_zero_addends_change_no_texel_sum():
+    """Kernel D skips the addends g * mt that are +0.0 or -0.0. The plain
+    texel sums over only the nonzero addends are bit-equal to those over
+    all of them, and both match the JAX segment_sum_sorted; the cases
+    hold -0.0 addends and a NaN addend (on the last texel, where the JAX
+    prefix sum carries a NaN into no other segment)."""
+    rng = np.random.RandomState(3)
+    h, w, n_tex = 8, 32, 40
+    idx = rng.randint(0, n_tex - 1, size=(h, w)).astype(np.int64)
+    idx[:, :6] = 9                                   # a run of equal indices
+    g = rng.randn(3, h, w).astype(np.float32)
+    mt = rng.rand(3, h, w).astype(np.float32)
+    mt[:, ::2, ::3] = 0.0
+    mt[:, 1::2, ::3] = -0.0                          # -0.0 * g: a signed zero
+    g[2, 0, :6] = -0.0
+    idx[5, 7] = n_tex - 1
+    mt[1, 5, 7] = np.nan
+    rgb = rng.rand(n_tex, 3).astype(np.float32)
+    _, d_all = _run(g, idx, mt, rgb)
+
+    flat = torch.from_numpy(idx.reshape(-1))
+    want = segment_sum_sorted(jnp.asarray(idx.reshape(-1), jnp.int32),
+                              tuple(jnp.asarray((g[c] * mt[c]).reshape(-1))
+                                    for c in range(3)), n_tex)
+    for c in range(3):
+        v = torch.from_numpy((g[c] * mt[c]).reshape(-1))
+        keep = v != 0                                # NaN != 0: kept
+        assert (~keep).sum() > 0 and (v == 0).logical_and(torch.signbit(v)).any()
+        d_nz = torch.zeros(n_tex).index_add_(0, flat[keep], v[keep])
+        assert torch.equal(d_nz.view(torch.int32), d_all[c].view(torch.int32))
+        np.testing.assert_allclose(d_all[c].numpy(), np.asarray(want[c]),
+                                   rtol=1e-5, atol=1e-5)
+    assert np.isnan(d_all[1][n_tex - 1].item())
+    assert np.isfinite(d_all[1][:n_tex - 1].numpy()).all()
