@@ -38,21 +38,32 @@ Phases, one line each; any failure raises and the exit code is not 0:
    allclose (rtol 1e-3, atol 1e-3 of the largest reference cotangent:
    the kernel sums in another order); glass_spheres + gradient_sky(512,
    256) at 1280x720, 8 bounces, relative L2 error under 2e-2 per table
-   (a lottery flip on a few pixels moves a sum over all pixels);
+   (a lottery flip on a few pixels moves a sum over all pixels); two
+   launches bit-equal (fixed-order sums); its lane utilisation (counted
+   in the kernel, and for one thread per pixel from the plain version's
+   masks), the clock64 split of an instrumented launch (the cycles lane 0
+   of every warp spends refilling, in segment(), finishing steps, summing
+   into the warps' rows and writing the partials), its time back to back
+   and with the stream held full, its ptxas registers and spills;
 7. kernel D (env cotangents + texel scatter) vs its plain version at
    1280x720 pixels and 512x256 texels, on kernel B's indices of phase 4:
    cot_mt exactly equal, each texel's sum of k values within
    (k - 1) * 2^-24 * sum|v| (at least 8 * 2^-24 * sum|v|) of a float64
-   index_add_; the busiest texel with and without the zero addends (which
-   the kernel skips), and D and index_add_ with the stream held full;
+   index_add_; two calls bit-equal (fixed-order sums); the busiest texel
+   with and without the zero addends (which the kernel drops), and D, the
+   deterministic library call (index_put_ with accumulate, which sorts
+   under torch.use_deterministic_algorithms) and index_add_ (atomics)
+   with the stream held full;
 8. the training path: fwd_bwd_benchmark(backend="cuda") at the bench
    workload (counter RNG, params albedo + 0.05, sphere centers + 0.1 and
    every env texel), 2 warmup + 64 timed steps in 2 spans; kernels C and
    D launch once per step, A and B once more for the target; gradients
    finite and within 2e-2 relative L2 of the plain path's on the card;
    the device time per step with the stream kept full and the idle
-   share; then 8 Adam steps of adam_inverse_render on the albedo, whose
-   loss must fall;
+   share; two steps on one frame bit-equal (loss and gradients); the same
+   step with a cubemap env (six gradient_sky(256, 256) faces) within 2e-2
+   relative L2 of the plain path's; then 8 Adam steps of
+   adam_inverse_render on the albedo, whose loss must fall;
 9. kernel E (env lookup + texel fetch) vs its plain version on phase 3's
    720p planes, for all six env_mode x env_sampling pairs (equirect
    gradient_sky(512, 256); cubemap six gradient_sky(256, 256) faces):
@@ -75,7 +86,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
    time per frame with the stream kept full and the idle share; one
    720p frame each of bilinear equirect and cubemap nearest through the
    same route, checked the same way; a PNG written through kernel G
-   (one launch);
+   (one launch); G timed at 1080p back to back and held full;
 13. checkpoint/resume on the card: 8 textured_1080 frames saved every 4,
    a new renderer resumed for 4 more, bit-equal to 12 frames in one run;
 14. the probes (kernels K6-K8, built into their own library in phase 2):
@@ -169,6 +180,26 @@ def cuda_ms(fn, n: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
+def device_ms_by_kernel(fn, calls: int = 5) -> dict:
+    """Device milliseconds per call of ``fn`` by kernel name
+    (torch.profiler's CUDA activity)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            out[e.key] = us / 1e3 / calls
+    return out
+
+
 def robust(a: torch.Tensor, b: torch.Tensor, what: str, frac: float) -> float:
     """Per-channel robust agreement: means within 1e-2 relative and under
     ``frac`` of pixels off by > 1e-3; returns the share of pixels off."""
@@ -254,7 +285,10 @@ def beer_scene(dev):
 TABLES = ("quad", "sphere", "material", "camera")
 
 
-def phase_kernel_c(dev, glass_tables, glass_cfg) -> dict:
+C_CLOCKS = ("refill", "segment", "finish", "sums", "rows_out")
+
+
+def phase_kernel_c(dev, glass_tables, glass_cfg, build_log) -> dict:
     """Phase 6: kernel C vs its plain version; its numbers for the JSON."""
     from cpuperformanceraytracer_tpu_torch.config import RenderConfig
     from cpuperformanceraytracer_tpu_torch.kernels.backward import (
@@ -266,6 +300,7 @@ def phase_kernel_c(dev, glass_tables, glass_cfg) -> dict:
         render_planes_reference,
     )
     from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
+    from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
 
     gen = torch.Generator(device=dev).manual_seed(0)
     strict_err = 0.0
@@ -300,24 +335,63 @@ def phase_kernel_c(dev, glass_tables, glass_cfg) -> dict:
             if w.norm() > 0}
     if max(rels.values()) >= 2e-2:
         raise AssertionError(f"kernel C glass 1280x720: relative L2 {rels}")
-    live = []
-    render_planes_reference(glass_tables, cfg, 1, 0, live_segments=live)
+    # fixed-order sums: a second launch gives the same bits
+    again = bwd_tables(glass_tables, cfg, 1, 0, cot6)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, again)):
+        raise AssertionError("kernel C: two launches differ")
+    live, masks = [], []
+    render_planes_reference(glass_tables, cfg, 1, 0, live_segments=live,
+                            live_masks=masks)
+    util_pixel = lane_utilisation(masks, cfg.width)
+    del masks
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    clocks = torch.zeros(len(C_CLOCKS) + 1, dtype=torch.int64, device=dev)
+    bwd_tables(glass_tables, cfg, 1, 0, cot6, lane_stats=stats)
+    bwd_tables(glass_tables, cfg, 1, 0, cot6, clocks=clocks)
+    torch.cuda.synchronize()
+    util = stats[0].item() / stats[1].item()
+    split = {k: v / clocks[-1].item() for k, v in zip(C_CLOCKS, clocks.tolist())}
     ms = cuda_ms(lambda: bwd_tables(glass_tables, cfg, 1, 0, cot6), 10)
+    held_ms = device_ms(lambda: bwd_tables(glass_tables, cfg, 1, 0, cot6), 20,
+                        dev)
     plain_ms = cuda_ms(
         lambda: bwd_tables_reference(glass_tables, cfg, 1, 0, cot6), 2, 1)
     n_px = cfg.width * cfg.height
-    n_blocks = ((cfg.width + 31) // 32) * ((cfg.height + 3) // 4)
     n_cells = sum(t.numel() for t in glass_tables)
-    flops = (sum(live) * (2 * segment_flops(glass_tables) + FLOPS_ADJOINT)
+    n_blocks = bwd_blocks(glass_tables, cfg)
+    # the replay runs every live segment, the reverse sweep all but each
+    # pixel's last again (its adjoint reuses the replay's intermediates)
+    flops = ((2 * sum(live) - n_px) * segment_flops(glass_tables)
+             + sum(live) * FLOPS_ADJOINT
              + n_px * (FLOPS_CAMERA + FLOPS_CAMERA_ADJ))
     bnd = bound(6 * 4 * n_px + 4 * n_blocks * n_cells, flops)
+    regs = ptxas_of(build_log, "bwd_tables_kernel")
     phase("kernel C", f"Beer + cornell 256x64 allclose (max abs err "
           f"{strict_err:.3g}); glass 1280x720 8 bounces relative L2 "
           + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
-          + f"; {ms:.4f} ms vs plain {plain_ms:.2f} ms; bound {bnd[0]:.4f} ms "
-          f"({bnd[1]}, {sum(live)} live segments)")
-    return dict(max_abs_err=strict_err, ms=ms, plain_ms=plain_ms, bound=bnd,
-                library_ms=None, rel_l2_1280x720=rels, live_segments=sum(live))
+          + f"; two launches bit-equal; {ms:.4f} ms back to back, "
+          f"{held_ms:.4f} held full vs plain {plain_ms:.2f} ms; bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}, {sum(live)} live segments); lane "
+          f"utilisation {util:.4f} (one thread per pixel: {util_pixel:.4f}); "
+          f"clock64 split " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"; {n_blocks} blocks; ptxas: {regs}")
+    return dict(max_abs_err=strict_err, ms=held_ms, back_to_back_ms=ms,
+                plain_ms=plain_ms, bound=bnd, library_ms=None,
+                rel_l2_1280x720=rels, live_segments=sum(live),
+                bit_equal_twice=True, lane_utilisation=util,
+                lane_utilisation_one_thread_per_pixel=util_pixel,
+                clock64_split=split, blocks=n_blocks, ptxas=regs)
+
+
+def bwd_blocks(tables, cfg) -> int:
+    """Rows of kernel C's partials: its persistent grid on this card."""
+    from cpuperformanceraytracer_tpu_torch.kernels.backward import _grid_blocks
+
+    return _grid_blocks(tables[0].device.index or 0, tables[0].shape[0],
+                        tables[1].shape[0], tables[2].shape[0], cfg.bounces,
+                        cfg.width, cfg.height)
 
 
 def phase_kernel_d(dev, planes, idx, tex) -> dict:
@@ -333,9 +407,13 @@ def phase_kernel_d(dev, planes, idx, tex) -> dict:
     mt = planes[6:9]
     cot, d_tex = env_backward(g, idx, mt, tex)
     cot_want, _ = env_backward_reference(g, idx, mt, tex)
+    _, again = env_backward(g, idx, mt, tex)
     torch.cuda.synchronize()
     if not torch.equal(cot, cot_want):
         raise AssertionError("kernel D: cot_mt differs from the plain version")
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(d_tex, again)):
+        raise AssertionError("kernel D: two calls differ")
     n_tex = tex.width * tex.height
     flat = idx.reshape(-1)
     vals = (g * mt).reshape(3, -1).t().contiguous()
@@ -368,23 +446,52 @@ def phase_kernel_d(dev, planes, idx, tex) -> dict:
     plain_ms = cuda_ms(lambda: env_backward_reference(g, idx, mt, tex), 20)
     scatter = torch.zeros((n_tex, 3), device=dev)
     library_ms = cuda_ms(lambda: scatter.index_add_(0, flat, vals), 200)
-    held_ms = device_ms(lambda: env_backward(g, idx, mt, tex), 200, dev)
+    # 40 calls a window: a call is some ten launches (the sort's), and a
+    # window must stay under the stream's launch queue
+    held_ms = device_ms(lambda: env_backward(g, idx, mt, tex), 40, dev)
     library_held_ms = device_ms(lambda: scatter.index_add_(0, flat, vals), 200,
                                 dev)
+    # the deterministic library call for the same sums: index_put_ with
+    # accumulate sorts under torch.use_deterministic_algorithms
+    torch.use_deterministic_algorithms(True)
+    try:
+        def det_call():
+            scatter.index_put_((flat,), vals, accumulate=True)
+
+        try:
+            det_ms, det_how = device_ms(det_call, 40, dev), "held full"
+        except RuntimeError:  # the call waits for the device: time it as it runs
+            det_ms, det_how = cuda_ms(det_call, 40), "back to back (it synchronises)"
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # where D's time goes: its two kernels and the library sort between
+    by_kernel = device_ms_by_kernel(lambda: env_backward(g, idx, mt, tex))
+    split = {"runs": 0.0, "sort": 0.0, "sums": 0.0}
+    for name, t in by_kernel.items():
+        split["runs" if "env_runs_kernel" in name else
+              "sums" if "texel_sums_kernel" in name else "sort"] += t
     n_px = idx.numel()
     bnd = bound(n_px * (12 + 8 + 12 + 12) + 2 * 3 * 4 * n_tex, 9 * n_px)
-    phase("kernel D", f"cot_mt equal; texel sums within {worst:.3g} of the "
+    phase("kernel D", f"cot_mt equal; two calls bit-equal; texel sums within "
+          f"{worst:.3g} of the "
           f"(k-1)*2^-24*sum|v| bound (max abs err {max_err:.3g}; busiest "
           f"texel {int(count.max())} pixels, {busiest_nz} with a nonzero "
           f"addend ({int(nonzero.sum())} of {n_px} pixels); texel sums over "
           f"4*2^-23*sum|v|: {over_fixed} here, {lib_over} with index_add_); "
           f"{ms:.4f} ms "
           f"vs plain {plain_ms:.4f} ms vs index_add_ {library_ms:.4f} ms; "
-          f"held full {held_ms:.4f} ms vs index_add_ {library_held_ms:.4f} ms; "
+          f"held full {held_ms:.4f} ms vs deterministic index_put_ "
+          f"{det_ms:.4f} ms ({det_how}) vs index_add_ (atomics) "
+          f"{library_held_ms:.4f} ms; by kernel (profiler) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + " ms; "
           f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound=bnd,
-                library_ms=library_ms, held_ms=held_ms,
-                library_held_ms=library_held_ms,
+    return dict(max_abs_err=max_err, ms=held_ms, back_to_back_ms=ms,
+                plain_ms=plain_ms, bound=bnd, library_ms=det_ms,
+                library_call=f"index_put_(accumulate=True), deterministic, "
+                             f"{det_how}",
+                index_add_ms=library_ms, index_add_held_ms=library_held_ms,
+                device_ms_by_part=split,
+                bit_equal_twice=True,
                 busiest_texel={"all": int(count.max()), "nonzero": busiest_nz})
 
 
@@ -443,12 +550,35 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
     enqueue_ms = (time.perf_counter() - t0) / n * 1e3
     torch.cuda.synchronize()
 
-    _, got = loss_and_grad(params, target, scene, cam, tex, cfg, 1)
+    loss_a, got = loss_and_grad(params, target, scene, cam, tex, cfg, 1)
+    loss_b, again = loss_and_grad(params, target, scene, cam, tex, cfg, 1)
+    if not (torch.equal(loss_a, loss_b) and all(
+            torch.equal(got[k].view(torch.int32), again[k].view(torch.int32))
+            for k in params)):
+        raise AssertionError("training: two steps on one frame differ")
+    del again
     _, want = loss_and_grad(params, target, scene, cam, tex,
                             cfg.replace(backend="torch"), 1)
     rels = {k: rel_l2(got[k], want[k]) for k in params}
     if max(rels.values()) >= 2e-2:
         raise AssertionError(f"training gradients vs plain path: {rels}")
+    del got, want
+
+    # the same step with a cubemap env (six gradient_sky(256, 256) faces),
+    # stochastic: kernels B and D take its tap
+    cube = cubemap_texture(dev, 256)
+    ccfg = cfg.replace(env_mode="cubemap")
+    cparams = default_bench_params(scene, cube)
+    with torch.no_grad():
+        ctarget = render_for_params({}, scene, cam, cube, ccfg, 0)
+    _, cgot = loss_and_grad(cparams, ctarget, scene, cam, cube, ccfg, 1)
+    _, cwant = loss_and_grad(cparams, ctarget, scene, cam, cube,
+                             ccfg.replace(backend="torch"), 1)
+    crels = {k: rel_l2(cgot[k], cwant[k]) for k in cparams}
+    if max(crels.values()) >= 2e-2 or not all(
+            torch.isfinite(v).all() and v.norm() > 0 for v in cgot.values()):
+        raise AssertionError(f"cubemap training gradients vs plain path: {crels}")
+    del cgot, cwant
 
     m = scene.materials.albedo
     albedo = torch.stack([m.x, m.y, m.z], -1)
@@ -462,13 +592,16 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
           f"counter RNG, env gradient_sky(512,256)); spans {r['span_ms']} ms, "
           f"spread {r['spread']:.4f}; grads_finite {r['grads_finite']}; "
           f"launches {launches}; device busy {busy_ms:.4f} ms/step, idle "
-          f"share {idle:.4f}; host enqueue {enqueue_ms:.4f} ms/step; grads "
-          f"vs plain path relative L2 "
+          f"share {idle:.4f}; host enqueue {enqueue_ms:.4f} ms/step; two "
+          f"steps bit-equal; grads vs plain path relative L2 "
           + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + "; cubemap step vs plain path "
+          + ", ".join(f"{k} {v:.3e}" for k, v in crels.items())
           + f"; inverse losses {[round(x, 6) for x in losses]}; GPU {gpu}")
     summary = dict(r, device_busy_ms_per_step=busy_ms, idle_share=idle,
                    host_enqueue_ms_per_step=enqueue_ms,
-                   grad_rel_l2_vs_plain=rels, inverse_losses=losses,
+                   grad_rel_l2_vs_plain=rels, bit_equal_twice=True,
+                   cubemap_grad_rel_l2_vs_plain=crels, inverse_losses=losses,
                    warmup_steps=2)
     return {"launches": launches, "summary": summary}
 
@@ -621,6 +754,7 @@ def phase_textured(dev, gpu) -> dict:
     from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
     from cpuperformanceraytracer_tpu_torch.texture.procedural import gradient_sky
     from cpuperformanceraytracer_tpu_torch.texture.texture import texture_from_array
+    from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
 
     cfg = BENCH_CONFIGS["textured_1080"].replace(
         warmup_frames=WARMUP, num_frames=TEXTURED_FRAMES, backend="cuda")
@@ -711,6 +845,7 @@ def phase_textured(dev, gpu) -> dict:
     ms_f = cuda_ms(lambda: combine_accumulate(*args), 50)
     plain_ms_f = cuda_ms(lambda: combine_accumulate_reference(*args), 3)
     ms_g = cuda_ms(lambda: tonemap(acc), 200)
+    held_g = device_ms(lambda: tonemap(acc), 200, dev)
     plain_ms_g = cuda_ms(lambda: tonemap_reference(acc), 20)
     texels = torch.unique(flat).numel()
     # E: 5 planes read, one RGBX row written, the texels it touches read
@@ -731,7 +866,8 @@ def phase_textured(dev, gpu) -> dict:
           f"A {ms_a:.4f} ms a sample; E {ms_e:.4f} ms (plain {plain_ms_e:.3f}, index_select "
           f"{lib_ms_e:.4f}, bound {bound_e[0]:.4f}, {texels} texels), F "
           f"{ms_f:.4f} ms (plain {plain_ms_f:.3f}, bound {bound_f[0]:.4f}), "
-          f"G {ms_g:.4f} ms (plain {plain_ms_g:.4f}, bound {bound_g[0]:.4f}); "
+          f"G {held_g:.4f} ms held full, {ms_g:.4f} back to back (plain "
+          f"{plain_ms_g:.4f}, bound {bound_g[0]:.4f}); "
           f"GPU {gpu}")
     summary = dict(ms_per_frame=timer.mean_ms, Mrays_per_s=mrays,
                    device_busy_ms_per_frame=busy_ms, idle_share=idle,
@@ -743,8 +879,8 @@ def phase_textured(dev, gpu) -> dict:
                        bound=bound_e), err_e=err_e,
                 f=dict(ms=ms_f, plain_ms=plain_ms_f, library_ms=None,
                        bound=bound_f),
-                g=dict(ms=ms_g, plain_ms=plain_ms_g, library_ms=None,
-                       bound=bound_g))
+                g=dict(ms=held_g, back_to_back_ms=ms_g, plain_ms=plain_ms_g,
+                       library_ms=None, bound=bound_g))
 
 
 def phase_checkpoint(dev) -> None:
@@ -965,7 +1101,8 @@ def phase_held_times(dev, planes, idx, tex, cfg, accum) -> dict:
              "index_add_": lambda: scatter.index_add_(0, flat, vals),
              "env_lookup": lambda: env_lookup(planes, tex, cfg, out=e4),
              "tonemap": lambda: tonemap(accum)}
-    out = {k: dict(back_to_back_ms=cuda_ms(fn, 100), held_ms=device_ms(fn, 100, dev))
+    out = {k: dict(back_to_back_ms=cuda_ms(fn, 100),
+                   held_ms=device_ms(fn, 40 if k == "env_backward" else 100, dev))
            for k, fn in calls.items()}
     phase("held stream", "720p, ms back to back / held full: " + ", ".join(
         f"{k} {v['back_to_back_ms']:.4f} / {v['held_ms']:.4f}"
@@ -1128,7 +1265,7 @@ def main() -> int:
           f"{busy_ms:.4f} ms/frame, idle share {idle:.4f}; GPU {gpu}")
 
     # ---- phases 6-8 --------------------------------------------------------
-    c = phase_kernel_c(dev, tables, cfg)
+    c = phase_kernel_c(dev, tables, cfg, builds[0].log)
     d = phase_kernel_d(dev, planes, gi, tex)
     t = phase_training(dev, scene, cam, tex, cfg, gpu)
 

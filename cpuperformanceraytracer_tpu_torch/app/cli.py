@@ -19,8 +19,9 @@ truecolor); keys on a tty: ``s`` writes a timestamped screenshot, ``q``
 stops. ``bench`` runs named configs (``config.BENCH_CONFIGS``) and prints
 one JSON line each, naming the env texture (a procedural sky). ``bench-grad`` prints one
 JSON line: the timed fwd+bwd step of ``diff/benchgrad.py``. ``inverse``
-recovers perturbed albedos and sphere centers by Adam and prints the loss
-before and after. The two gradient commands use the counter RNG.
+recovers perturbed albedos and sphere centers by Adam, logs the loss
+every 10 steps on stderr (unless ``--silent``) and prints the loss before
+and after. The two gradient commands use the counter RNG.
 
 ``--env`` is ``none`` (constant ambient), ``procedural`` (a 512x256
 gradient sky) or a path to a Radiance .hdr equirect map; ``--cubemap``
@@ -245,6 +246,7 @@ def cmd_inverse(a) -> int:
         InverseProblem,
         adam_inverse_render,
     )
+    from cpuperformanceraytracer_tpu_torch.utils.log import get_logger
 
     cfg = _cfg(a, rng="counter")
     _, scene, cam, tex = _problem(a, cfg)
@@ -257,7 +259,8 @@ def cmd_inverse(a) -> int:
             "sphere_centers": centers + 0.3}
     params, losses = adam_inverse_render(
         InverseProblem(scene, cam, tex, cfg, target), init, steps=a.steps,
-        learning_rate=a.lr, eps=a.eps)
+        learning_rate=a.lr, eps=a.eps, log_every=10,
+        logger=get_logger(silent=a.silent))
     print(f"inverse render: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
           f"albedo err {(params['albedo'] - albedo).abs().max().item():.4f}; "
           f"center err "
@@ -329,6 +332,8 @@ def main(argv=None) -> int:
     p.add_argument("--eps", type=float, default=1e-8,
                    help="Adam epsilon; ~1e-2 acts as a gradient noise "
                         "floor for geometry recovery")
+    p.add_argument("--silent", action="store_true",
+                   help="no progress lines (every 10 steps otherwise)")
     p.set_defaults(fn=cmd_inverse)
 
     a = ap.parse_args(argv)

@@ -1,4 +1,5 @@
-"""Compare kernels A and D of two or more checkouts of the port on one GPU.
+"""Compare kernels A, C, D and G of two or more checkouts of the port on
+one GPU.
 
     python -m cpuperformanceraytracer_tpu_torch.app.kernel_ab \\
         --trees build/parent . --out out/kernel_ab
@@ -20,13 +21,21 @@ own sources. A run, through the API the trees share:
   and times it and ``index_add_`` at 720p, held full, on the training
   step's inputs: counter-RNG planes of frame 1, kernel B's texel indices
   into ``gradient_sky(512, 256)`` and a seeded cotangent;
+- times kernel C at 720p, held full, on the training step's cotangent
+  inputs (a seeded cot6 on frame 1), and keeps its table cotangents under
+  ``--planes``; where the tree's wrapper takes them, its lane utilisation
+  and the clock64 split of an instrumented launch;
+- times kernel G on a seeded 1920x1080 accumulator, held full;
 - runs the forward workload (2 warmup + 64 frames) and textured_1080
   (2 warmup + 16 frames) through ``OfflineRenderer`` for their ms/frame;
 - reports kernel A's lane utilisation where the tree's wrapper counts
-  it, and the ptxas lines of kernels A and D.
+  it, and the ptxas lines of the tree's kernels.
 
 Then every run's planes are compared with the first run's, bit for bit:
-the parity of the trees' kernel A (and the determinism of each). Prints
+the parity of the trees' kernel A (and the determinism of each); and
+every run's kernel C cotangents with the first run's, each table within
+2e-2 relative L2 (phase 6 of ``chip_smoke.py``: the trees may sum in
+other orders), and the bits that differ are counted. Prints
 one JSON line per run, a summary line per tree (mean, min, max) and a
 parity line; the lines also go to ``<out>/runs.jsonl``.
 """
@@ -47,6 +56,8 @@ import inspect, json, os, subprocess, sys
 import torch
 from cpuperformanceraytracer_tpu_torch.config import BENCH_CONFIGS, RenderConfig
 from cpuperformanceraytracer_tpu_torch.kernels import _build
+from cpuperformanceraytracer_tpu_torch.kernels.backward import bwd_tables
+from cpuperformanceraytracer_tpu_torch.kernels.tonemap import tonemap
 from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
 from cpuperformanceraytracer_tpu_torch.kernels.env_backward import env_backward
 from cpuperformanceraytracer_tpu_torch.kernels.megakernel import pack_tables, render_planes
@@ -132,8 +143,27 @@ res["D_cot_equal"] = bool(torch.equal(cot, g * torch.stack(
     [env.r[idx], env.g[idx], env.b[idx]])))
 res["D_err_over_bound"] = worst
 res["D_ms"] = cuda_ms(lambda: env_backward(g, idx, mt, env), 200)
-res["D_held_ms"] = device_ms(lambda: env_backward(g, idx, mt, env), 200, dev)
+res["D_held_ms"] = device_ms(lambda: env_backward(g, idx, mt, env), 40, dev)
 res["index_add_held_ms"] = device_ms(lambda: scatter.index_add_(0, flat, vals), 200, dev)
+
+cot6 = torch.randn((6, 720, 1280), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+d_tables = bwd_tables(glass, train, 1, 0, cot6)
+torch.save([t.cpu() for t in d_tables], os.path.join(planes_dir, f"{tag}_C.pt"))
+res["C_held_ms"] = device_ms(lambda: bwd_tables(glass, train, 1, 0, cot6), 20, dev)
+c_params = inspect.signature(bwd_tables).parameters
+if "lane_stats" in c_params:
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    clocks = torch.zeros(6, dtype=torch.int64, device=dev)
+    bwd_tables(glass, train, 1, 0, cot6, lane_stats=stats)
+    bwd_tables(glass, train, 1, 0, cot6, clocks=clocks)
+    res["C_lane_utilisation"] = stats[0].item() / stats[1].item()
+    res["C_clock64_split"] = dict(zip(
+        ("refill", "segment", "finish", "sums", "rows_out"),
+        (v / clocks[5].item() for v in clocks.tolist())))
+acc = torch.rand((3, 1080, 1920), device=dev,
+                 generator=torch.Generator(device=dev).manual_seed(4)) * 8.0
+res["G_held_ms"] = device_ms(lambda: tonemap(acc), 200, dev)
 
 scene, cam = scene_by_name("glass_spheres", device=dev)
 res["forward_ms_per_frame"] = OfflineRenderer(
@@ -149,7 +179,8 @@ print("RESULT " + json.dumps(res))
 """
 
 METRICS = ("A_720p_wang_ms", "A_720p_wang_held_ms", "A_1080p_counter_ms",
-           "A_1080p_counter_held_ms", "D_ms", "D_held_ms", "index_add_held_ms",
+           "A_1080p_counter_held_ms", "C_held_ms", "C_lane_utilisation",
+           "G_held_ms", "D_ms", "D_held_ms", "index_add_held_ms",
            "forward_ms_per_frame", "textured_ms_per_frame",
            "A_720p_wang_lane_utilisation", "A_1080p_counter_lane_utilisation")
 SHAPES = ("720p_wang", "1080p_counter", "cornell_128x32_spp2_wang")
@@ -179,6 +210,22 @@ def parity(planes_dir: str, tags: list) -> dict:
             tag: (torch.load(os.path.join(planes_dir, f"{tag}_{shape}.pt"))
                   .view(torch.int32) != bits).sum(dim=(1, 2)).tolist()
             for tag in tags[1:]}
+    return out
+
+
+def kernel_c_agreement(planes_dir: str, tags: list) -> dict:
+    """Per run: each table's relative L2 distance of kernel C's cotangents
+    from the first run's, and the cells whose bits differ."""
+    ref = torch.load(os.path.join(planes_dir, f"{tags[0]}_C.pt"))
+    out = {}
+    for tag in tags[1:]:
+        got = torch.load(os.path.join(planes_dir, f"{tag}_C.pt"))
+        out[tag] = {
+            "rel_l2": [((g.double() - r.double()).norm()
+                        / r.double().norm().clamp_min(1e-300)).item()
+                       for g, r in zip(got, ref)],
+            "bits_differ": [int((g.view(torch.int32) != r.view(torch.int32)).sum())
+                            for g, r in zip(got, ref)]}
     return out
 
 
@@ -216,15 +263,18 @@ def main(argv=None) -> int:
             for k in METRICS if all(k in r for r in mine)}})
         print(json.dumps(summary[-1]), flush=True)
     diff = parity(planes_dir, [r["tag"] for r in rows])
+    c_diff = kernel_c_agreement(planes_dir, [r["tag"] for r in rows])
     line = {"parity_vs_run0": diff, "bit_equal": all(
         sum(v) == 0 for per in diff.values() for v in per.values()),
+        "kernel_c_vs_run0": c_diff, "kernel_c_within_2e-2": all(
+            max(v["rel_l2"]) < 2e-2 for v in c_diff.values()),
         "runs": {r["tag"]: r["tree"] for r in rows}}
     print(json.dumps(line), flush=True)
     if a.out:
         with open(os.path.join(a.out, "runs.jsonl"), "w") as f:
             for r in rows + summary + [line]:
                 f.write(json.dumps(r) + "\n")
-    return 0 if line["bit_equal"] else 1
+    return 0 if line["bit_equal"] and line["kernel_c_within_2e-2"] else 1
 
 
 if __name__ == "__main__":

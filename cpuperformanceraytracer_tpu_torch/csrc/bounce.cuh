@@ -365,11 +365,9 @@ CPRT_FN void segment(const Path& p, Rng& rng, const Params& P, const float* quad
     if (s.miss) s.new_ret = ret;  // a miss keeps the (ambient-lit) return
 }
 
-// Advance the path by one segment (kernel A's bounce).
-CPRT_FN void bounce(Path& p, Rng& rng, const Params& P, const float* quads, const float* sph,
-                    const float* inv_r, const float* mats, const float* cam) {
-    Seg s;
-    segment(p, rng, P, quads, sph, inv_r, mats, cam, s);
+// Move the path to the state segment ``s`` computed at it (bounce's
+// update; kernel C's replay keeps only thr, pos and dir of it).
+CPRT_FN void advance(Path& p, const Seg& s) {
     if (s.miss) {
         p.ret = s.new_ret;
         p.miss_dir = p.dir;
@@ -385,6 +383,14 @@ CPRT_FN void bounce(Path& p, Rng& rng, const Params& P, const float* quads, cons
         p.dir = s.new_dir;
     }
     p.alive = s.update;
+}
+
+// Advance the path by one segment (kernel A's bounce).
+CPRT_FN void bounce(Path& p, Rng& rng, const Params& P, const float* quads, const float* sph,
+                    const float* inv_r, const float* mats, const float* cam) {
+    Seg s;
+    segment(p, rng, P, quads, sph, inv_r, mats, cam, s);
+    advance(p, s);
 }
 
 // The jittered primary ray (camera_ray_blk). ``target`` is the direction

@@ -6,9 +6,11 @@
 // the Pallas megakernel; here they are one pass per pixel over kernel A's
 // planes:
 //
-//   1. optional (-x, y, -z) flip of the miss direction;
-//   2. equirect uv: fract((atan2(z,x), asin(y)) * (0.1591, 0.3183) + .5),
-//      saturated (the truncated constants are the reference's);
+//   1. the uv of the miss direction (env.cuh, shared with kernel E):
+//      equirect after an optional (-x, y, -z) flip, fract((atan2(z,x),
+//      asin(y)) * (0.1591, 0.3183) + .5) saturated (the truncated constants
+//      are the reference's); or the cubemap's max-axis face select of the
+//      unflipped direction (texture.py:406-423);
 //   3. stochastic index floor(row+jr)*W + floor(col+jc), or nearest with a
 //      clamped truncation; then the FLAT index is clamped to [0, H*W-1]
 //      (JAX's clip-mode gather: u = 1 may wrap into the next row);
@@ -26,15 +28,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "env.cuh"
 
-__device__ __forceinline__ float saturate(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+namespace {
 
 __global__ void __launch_bounds__(256)
 env_accumulate_kernel(const float* __restrict__ planes, int n, const float* __restrict__ tex_r,
                       const float* __restrict__ tex_g, const float* __restrict__ tex_b,
                       int tex_w, int tex_h, float* __restrict__ accum, float blend,
-                      int env, int stochastic, int flip,
+                      int env, int cubemap, int stochastic, int flip,
                       int64_t* __restrict__ index_out) {
     const int p = blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= n) return;
@@ -42,17 +44,9 @@ env_accumulate_kernel(const float* __restrict__ planes, int n, const float* __re
     float cg = planes[n + p];
     float cb = planes[2 * n + p];
     if (env) {
-        float dx = planes[3 * n + p];
-        float dy = planes[4 * n + p];
-        float dz = planes[5 * n + p];
-        if (flip) {
-            dx = -dx;
-            dz = -dz;
-        }
-        float u = atan2f(dz, dx) * 0.1591f + 0.5f;
-        float v = asinf(fminf(fmaxf(dy, -1.0f), 1.0f)) * 0.3183f + 0.5f;
-        u = saturate(u - floorf(u));
-        v = saturate(v - floorf(v));
+        float u, v;
+        cprt_env::env_uv(planes[3 * n + p], planes[4 * n + p], planes[5 * n + p], cubemap,
+                         flip, u, v);
         int64_t idx;
         if (stochastic) {
             const float row = v * (float)(tex_h - 1);
@@ -82,12 +76,12 @@ env_accumulate_kernel(const float* __restrict__ planes, int n, const float* __re
 extern "C" int cprt_env_accumulate(const float* planes, int n, const float* tex_r,
                                    const float* tex_g, const float* tex_b, int tex_w,
                                    int tex_h, float* accum, float blend, int env,
-                                   int stochastic, int flip, int64_t* index_out,
+                                   int cubemap, int stochastic, int flip, int64_t* index_out,
                                    void* stream) {
     const int threads = 256;
     const int blocks = (n + threads - 1) / threads;
     env_accumulate_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        planes, n, tex_r, tex_g, tex_b, tex_w, tex_h, accum, blend, env, stochastic, flip,
-        index_out);
+        planes, n, tex_r, tex_g, tex_b, tex_w, tex_h, accum, blend, env, cubemap, stochastic,
+        flip, index_out);
     return (int)cudaGetLastError();
 }

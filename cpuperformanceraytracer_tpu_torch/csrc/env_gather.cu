@@ -30,7 +30,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "env.cuh"
+
 namespace {
+
+using cprt_env::env_uv;
 
 enum Sampling { STOCHASTIC = 0, NEAREST = 1, BILINEAR = 2 };
 
@@ -41,39 +45,6 @@ struct Tex {
     int w, h;
 };
 
-__device__ __forceinline__ float saturate(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
-
-__device__ __forceinline__ void equirect_uv(float dx, float dy, float dz, float& u, float& v) {
-    u = atan2f(dz, dx) * 0.1591f + 0.5f;
-    v = asinf(fminf(fmaxf(dy, -1.0f), 1.0f)) * 0.3183f + 0.5f;
-    u = saturate(u - floorf(u));
-    v = saturate(v - floorf(v));
-}
-
-// Max-axis face select onto six faces stacked vertically (px nx py ny pz
-// nz). Ties: X, overridden by Y when |y| >= |x|, by Z when |z| >= |x| and
-// |z| >= |y|.
-__device__ __forceinline__ void cubemap_uv(float dx, float dy, float dz, float& u, float& v) {
-    const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
-    float fu = dx >= 0.0f ? -dz : dz;
-    float fv = dy;
-    float off = dx >= 0.0f ? 0.0f : (float)(1.0 / 6.0);
-    if (ay >= ax) {
-        fu = dx;
-        fv = dy >= 0.0f ? -dz : dz;
-        off = dy >= 0.0f ? (float)(2.0 / 6.0) : (float)(3.0 / 6.0);
-    }
-    if (az >= ax && az >= ay) {
-        fu = dz >= 0.0f ? dx : -dx;
-        fv = dy;
-        off = dz >= 0.0f ? (float)(4.0 / 6.0) : (float)(5.0 / 6.0);
-    }
-    const float m = fmaxf(ax, fmaxf(ay, az));
-    u = saturate(fu / m * 0.5f + 0.5f);
-    v = saturate(fv / m * 0.5f + 0.5f);
-    v = saturate(v * (float)(1.0 / 6.0) + off);
-}
-
 __device__ __forceinline__ int64_t clamp_axis(int64_t x, int n) {
     return x < 0 ? 0 : (x > n - 1 ? n - 1 : x);
 }
@@ -83,19 +54,8 @@ env_lookup_kernel(const float* __restrict__ planes, int n, Tex t, int cubemap, i
                   int flip, float4* __restrict__ out, int64_t* __restrict__ taps) {
     const int p = blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= n) return;
-    float dx = planes[3 * n + p];
-    const float dy = planes[4 * n + p];
-    float dz = planes[5 * n + p];
     float u, v;
-    if (cubemap) {
-        cubemap_uv(dx, dy, dz, u, v);
-    } else {
-        if (flip) {
-            dx = -dx;
-            dz = -dz;
-        }
-        equirect_uv(dx, dy, dz, u, v);
-    }
+    env_uv(planes[3 * n + p], planes[4 * n + p], planes[5 * n + p], cubemap, flip, u, v);
     const float row = v * (float)(t.h - 1);
     const float col = u * (float)(t.w - 1);
     int64_t i[4];

@@ -55,8 +55,13 @@ def make_train_step(problem: InverseProblem, optimizer,
 def adam_inverse_render(problem: InverseProblem, init_params: Dict,
                         steps: int = 200, learning_rate: float = 0.01,
                         resample_frames: bool = False,
+                        log_every: int = 0, logger=None,
                         eps: float = 1e-8) -> tuple:
     """Run Adam; returns (final_params, losses).
+
+    With ``log_every`` and a ``logger``, steps 0, log_every, 2 * log_every,
+    ... log ``inverse step %d loss %.6f`` at INFO (the JAX package's steps
+    and message).
 
     ``eps`` is Adam's denominator epsilon, usable as a gradient noise
     floor: ~1e-2 damps the tiny cross-talk gradients of barely observed
@@ -68,6 +73,10 @@ def adam_inverse_render(problem: InverseProblem, init_params: Dict,
     optimizer = torch.optim.Adam(list(params.values()), lr=learning_rate,
                                  eps=eps)
     train_step = make_train_step(problem, optimizer, resample_frames)
-    losses: List[torch.Tensor] = [train_step(params, i) for i in range(steps)]
+    losses: List[torch.Tensor] = []
+    for i in range(steps):
+        losses.append(train_step(params, i))
+        if log_every and logger and i % log_every == 0:
+            logger.info("inverse step %d loss %.6f", i, float(losses[-1]))
     return ({k: v.detach() for k, v in params.items()},
             [float(x) for x in losses])

@@ -58,24 +58,35 @@ _SIGNATURES = {
         _P, _I,                           # planes (12, H, W), H*W
         _P, _P, _P, _I, _I,               # texture r g b, width, height
         _P, _F,                           # accum (3, H, W), blend
-        _I, _I, _I,                       # env stochastic flip
+        _I, _I, _I, _I,                   # env cubemap stochastic flip
         _P,                               # index_out (nullable)
         _P,                               # stream
     ],
     "cprt_bwd_tables": [
         _P, _I, _P, _I, _P, _I, _P,      # tables and their row counts
-        _P, _P,                           # cot6 (6, H, W), partials (blocks, cells)
+        _P, _P, _I,                       # cot6 (6, H, W), partials (blocks, cells), blocks
         _I, _I, _I, _I, _I,               # width height frame sample0 bounces
         _I, _I, _I, _I, _I,               # env_draws env_none roulette zangle jitter
         _F,                               # aspect
+        _P, _P,                           # lane stats (2 u64), clocks (6 u64), nullable
         _P,                               # stream
     ],
-    "cprt_env_backward": [
+    "cprt_bwd_tables_blocks": [
+        _I, _I, _I, _I, _I, _I, _P,      # NQ NS NM bounces width height, out: blocks
+    ],
+    "cprt_env_backward_runs": [
         _P, _P, _P,                       # g (3, n), idx (n,) int64, mt (3, n)
         _P, _P, _P,                       # texture r g b
-        _P, _P, _P, _P,                   # cot_mt (3, n), d_r d_g d_b
-        _I,                               # n
-        _P, _I,                           # texel sums scratch (T, 4), T
+        _P,                               # cot_mt (3, n)
+        _P, _P,                           # run keys (m,) int32, records (m, 4)
+        _P, _P, _P,                       # d_r d_g d_b (zeroed)
+        _I, _I,                           # n, T
+        _P,                               # stream
+    ],
+    "cprt_env_backward_sums": [
+        _P, _P, _P,                       # sorted keys (m,), their slots int64, records
+        _I, _I,                           # m, T
+        _P, _P, _P,                       # d_r d_g d_b
         _P,                               # stream
     ],
     "cprt_env_lookup": [

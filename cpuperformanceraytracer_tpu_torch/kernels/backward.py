@@ -32,6 +32,7 @@ autograd keeps only what reaches a leaf that requires grad.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -50,7 +51,6 @@ from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
 )
 from cpuperformanceraytracer_tpu_torch.texture.texture import Texture
 
-MAX_SEGMENTS = 32       # per-thread replay storage of csrc/backward.cu
 OUT_PLANES = (0, 1, 2, 6, 7, 8)  # kernel A's r, g, b, mt_x, mt_y, mt_z
 
 
@@ -62,17 +62,12 @@ def _require_counter(cfg) -> None:
 
 def require_diff_env(cfg) -> None:
     """The env lookups the diff path differentiates: one tap of an
-    equirect map (kernels B and D), as the JAX Pallas backward."""
-    if cfg.env_mode == "none":
-        return
-    if cfg.env_sampling == "bilinear":
+    equirect map or a cubemap (kernels B and D), as the JAX Pallas
+    backward."""
+    if cfg.env_mode != "none" and cfg.env_sampling == "bilinear":
         raise NotImplementedError(
             "the diff path: env_sampling 'bilinear' is 4-tap (use "
             "stochastic, the reference default, or nearest)")
-    if cfg.env_mode != "equirect":
-        raise NotImplementedError(
-            f"the diff path: env_mode {cfg.env_mode!r} is not ported "
-            "(kernels B and D look up an equirect map)")
 
 
 def bwd_tables_reference(tables, cfg, frame: int, sample0: int, cot6):
@@ -87,8 +82,29 @@ def bwd_tables_reference(tables, cfg, frame: int, sample0: int, cot6):
                  for t, g in zip(tables, grads))
 
 
-def bwd_tables(tables, cfg, frame: int, sample0: int, cot6):
-    """Kernel C wrapper: ``(d_quad, d_sph, d_mat, d_cam)``."""
+@functools.lru_cache(maxsize=None)
+def _grid_blocks(device_index: int, nq: int, ns: int, nm: int, bounces: int,
+                 width: int, height: int) -> int:
+    """Kernel C's persistent grid on this card (0: the scene's tables, the
+    warps' rows and the stacks do not fit in a block's shared memory)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = load_library().cprt_bwd_tables_blocks(
+            nq, ns, nm, bounces, width, height, ctypes.byref(blocks))
+    check(err, "bwd_tables")
+    return blocks.value
+
+
+def bwd_tables(tables, cfg, frame: int, sample0: int, cot6, lane_stats=None,
+               clocks=None):
+    """Kernel C wrapper: ``(d_quad, d_sph, d_mat, d_cam)``.
+
+    On the card, ``lane_stats`` (two zeroed int64) receives the lanes that
+    ran a step and the lane slots of all warp-iterations, and ``clocks``
+    (six zeroed int64) the clock64 cycles lane 0 of every warp spent
+    refilling, in ``segment()``, finishing steps (update or adjoint),
+    summing into the warps' rows, writing the partials, and in all; with
+    ``clocks`` an instrumented instance of the kernel runs."""
     quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
     _require_counter(cfg)
     if quad_tbl.device.type == "cpu":
@@ -97,8 +113,6 @@ def bwd_tables(tables, cfg, frame: int, sample0: int, cot6):
         raise ValueError(f"bwd_tables: unsupported device {quad_tbl.device}")
     if cfg.spp != 1:
         raise ValueError("bwd_tables: one sample per dispatch (spp=1)")
-    if cfg.bounces + 1 > MAX_SEGMENTS:
-        raise ValueError(f"bwd_tables: at most {MAX_SEGMENTS - 1} bounces")
     _check_tables(tables)
     h, w = cfg.height, cfg.width
     if (cot6.shape != (6, h, w) or cot6.dtype != torch.float32
@@ -106,23 +120,37 @@ def bwd_tables(tables, cfg, frame: int, sample0: int, cot6):
         raise ValueError(f"bwd_tables: cot6 must be contiguous f32 (6, {h}, "
                          f"{w}) on {quad_tbl.device}, got {tuple(cot6.shape)} "
                          f"{cot6.dtype} {cot6.device}")
+    for name, t, n in (("lane_stats", lane_stats, 2), ("clocks", clocks, 6)):
+        if t is not None and (t.shape != (n,) or t.dtype != torch.int64
+                              or t.device != quad_tbl.device):
+            raise ValueError(f"bwd_tables: {name} must be ({n},) int64 on "
+                             f"{quad_tbl.device}")
     sizes = [t.numel() for t in tables]
-    n_blocks = ((w + 31) // 32) * ((h + 3) // 4)
-    partials = torch.empty((n_blocks, sum(sizes)), dtype=torch.float32,
+    blocks = _grid_blocks(quad_tbl.device.index or 0, quad_tbl.shape[0],
+                          sph_tbl.shape[0], mat_tbl.shape[0], cfg.bounces,
+                          w, h)
+    if blocks == 0:
+        raise ValueError(
+            f"bwd_tables: the scene's tables, the warps' rows and the "
+            f"stacks of {cfg.bounces} bounces do not fit in a block's "
+            "shared memory")
+    partials = torch.empty((blocks, sum(sizes)), dtype=torch.float32,
                            device=quad_tbl.device)
     env_draws = cfg.env_mode != "none" and cfg.env_sampling == "stochastic"
     stream = torch.cuda.current_stream(quad_tbl.device).cuda_stream
     err = load_library().cprt_bwd_tables(
         quad_tbl.data_ptr(), quad_tbl.shape[0], sph_tbl.data_ptr(),
         sph_tbl.shape[0], mat_tbl.data_ptr(), mat_tbl.shape[0],
-        cam_tbl.data_ptr(), cot6.data_ptr(), partials.data_ptr(), w, h,
-        int(frame), int(sample0), cfg.bounces, int(env_draws),
+        cam_tbl.data_ptr(), cot6.data_ptr(), partials.data_ptr(), blocks, w,
+        h, int(frame), int(sample0), cfg.bounces, int(env_draws),
         int(cfg.env_mode == "none"), _ROULETTE[cfg.roulette],
         int(cfg.unit_vector_sampler == "zangle"), int(cfg.jitter),
-        ctypes.c_float(_aspect(cfg)), stream)
+        ctypes.c_float(_aspect(cfg)),
+        None if lane_stats is None else lane_stats.data_ptr(),
+        None if clocks is None else clocks.data_ptr(), stream)
     check(err, "bwd_tables")
     bwd_tables.launches += 1
-    flat = torch.sum(partials, dim=0)
+    flat = torch.sum(partials, dim=0)  # a fixed shape: a fixed order
     return tuple(part.reshape(t.shape)
                  for part, t in zip(torch.split(flat, sizes), tables))
 

@@ -13,7 +13,9 @@ updates the planar (3, H, W) accumulator IN PLACE:
 With env_mode "none" the ambient was already added by kernel A and
 ``color = rgb``. ``index_out`` (optional int64 (H, W)) receives the
 clamped flat texel index (the diff path's backward reads it).
-``env_color_reference`` is the functional form of the same resolve.
+The env map is an equirect map or a cubemap, looked up with one tap
+(stochastic or nearest). ``env_color_reference`` is the functional form
+of the same resolve.
 
 ``env_accumulate`` is the wrapper: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel (counted in
@@ -93,9 +95,8 @@ def env_accumulate(planes, texture, cfg, accum, blend: float = 1.0,
                                         index_out)
     if planes.device.type != "cuda":
         raise ValueError(f"env_accumulate: unsupported device {planes.device}")
-    if cfg.env_mode not in ("none", "equirect") or (
-            cfg.env_mode != "none"
-            and cfg.env_sampling not in ("stochastic", "nearest")):
+    if cfg.env_mode != "none" and cfg.env_sampling not in ("stochastic",
+                                                            "nearest"):
         raise NotImplementedError(
             f"env_accumulate: env_mode {cfg.env_mode!r} with sampling "
             f"{cfg.env_sampling!r} is not ported")
@@ -110,7 +111,8 @@ def env_accumulate(planes, texture, cfg, accum, blend: float = 1.0,
         texture.b.data_ptr() if env else None,
         texture.width if env else 0, texture.height if env else 0,
         accum.data_ptr(), ctypes.c_float(blend), int(env),
-        int(cfg.env_sampling == "stochastic"), int(cfg.env_flip_xz),
+        int(cfg.env_mode == "cubemap"), int(cfg.env_sampling == "stochastic"),
+        int(cfg.env_flip_xz),
         None if index_out is None else index_out.data_ptr(), stream)
     check(err, "env_accumulate")
     env_accumulate.launches += 1

@@ -11,14 +11,17 @@ index ``idx`` (H, W) int64, kernel A's miss-throughput planes ``mt``
     cot_mt (3, H, W) = g * tex[idx]            (d colour / d miss_thr)
     d_tex  3 x (T,)  : d_tex[c][idx[p]] += g[c][p] * mt[c][p]
 
-On the card (``csrc/env_backward.cu``) the texel sum is one pass of f32
-atomics: a warp sums each run of equal indices first, skips the runs
-whose sums are +0.0 or -0.0 (a never-missed pixel has mt = 0), so the
-set of addends shrinks but the sum does not change, and adds the three
-channels of a run with one vector atomic into a (T, 4) scratch that a
-second pass copies into the planes; the order in which the runs arrive
-varies from run to run. The plain version uses ``index_add_`` over
-every addend.
+The plain version adds every addend with ``index_add_`` on the tensor's
+device: on the CPU one pass in pixel order, on the card with atomics in
+arrival order. The kernel (``csrc/env_backward.cu``) sums in a fixed
+order, so the same inputs give the same bits on every run, following the
+reference's sort and segmented sum: a warp sums each run of equal
+indices among 32 neighbouring pixels in lane order and writes it as a
+record into a fixed slot (runs whose sums are +0.0 or -0.0 are dropped:
+a never-missed pixel has mt = 0), a stable ``torch.sort`` of the slots'
+texel keys keeps a texel's records in pixel order (the reference sorts
+with XLA outside its kernels), and a second kernel adds each texel's
+records in that order and writes the three planes.
 
 ``env_backward`` is the wrapper: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (counted in ``env_backward.launches``);
@@ -33,7 +36,8 @@ from cpuperformanceraytracer_tpu_torch.kernels._build import check, load_library
 
 
 def env_backward_reference(g, idx, mt, texture):
-    """Plain-torch kernel D: ``(cot_mt, (d_r, d_g, d_b))``."""
+    """Plain-torch kernel D: ``(cot_mt, (d_r, d_g, d_b))``; the texel sums
+    are ``index_add_`` of every addend (in pixel order on the CPU)."""
     flat = idx.reshape(-1)
     planes = (texture.r, texture.g, texture.b)
     cot_mt = torch.stack([g[c] * planes[c][idx] for c in range(3)])
@@ -72,17 +76,23 @@ def env_backward(g, idx, mt, texture):
     if g.device.type != "cuda":
         raise ValueError(f"env_backward: unsupported device {g.device}")
     _check(g, idx, mt, texture)
-    n_tex = texture.r.numel()
+    n_tex, n = texture.r.numel(), idx.numel()
+    m = (n + 31) // 32 * 32  # a slot for each lane of each chunk of 32 pixels
     cot_mt = torch.empty_like(g)
     d_tex = torch.empty((3, n_tex), dtype=torch.float32, device=g.device).unbind(0)
-    sums = torch.empty((n_tex, 4), dtype=torch.float32, device=g.device)
+    keys = torch.empty(m, dtype=torch.int32, device=g.device)
+    recs = torch.empty((m, 4), dtype=torch.float32, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = load_library().cprt_env_backward(
+    lib = load_library()
+    check(lib.cprt_env_backward_runs(
         g.data_ptr(), idx.data_ptr(), mt.data_ptr(), texture.r.data_ptr(),
         texture.g.data_ptr(), texture.b.data_ptr(), cot_mt.data_ptr(),
-        *(d.data_ptr() for d in d_tex), idx.numel(), sums.data_ptr(), n_tex,
-        stream)
-    check(err, "env_backward")
+        keys.data_ptr(), recs.data_ptr(), *(d.data_ptr() for d in d_tex), n,
+        n_tex, stream), "env_backward")
+    sorted_keys, order = torch.sort(keys, stable=True)
+    check(lib.cprt_env_backward_sums(
+        sorted_keys.data_ptr(), order.data_ptr(), recs.data_ptr(), m, n_tex,
+        *(d.data_ptr() for d in d_tex), stream), "env_backward")
     env_backward.launches += 1
     return cot_mt, d_tex
 

@@ -155,18 +155,15 @@ def test_wrapper_contract():
 #
 # bounce.cuh and backward.cu are plain C++ outside their CUDA-only parts:
 # this harness compiles them with the host compiler (no FMA contraction)
-# and runs kernel C's per-pixel adjoint over every pixel, summing the
-# table cotangents in float64.
+# and drives kernel C's steps (start_pixel, then step_segment and
+# step_finish until the pixel is done) over every pixel, summing each step's table cotangents in
+# float64.
 
 HARNESS = r"""
 #include "backward.cu"
 #include <string.h>
 #include <vector>
 
-struct HostAcc {
-    double* cells;
-    void operator()(int cell, float v) { cells[cell] += (double)v; }
-};
 
 extern "C" int host_bwd_tables(const float* q, int nq, const float* s, int ns,
                                const float* m, int nm, const float* c,
@@ -188,14 +185,29 @@ extern "C" int host_bwd_tables(const float* q, int nq, const float* s, int ns,
     memcpy(cam, c, sizeof(float) * CAM_COLS);
     for (int i = 0; i < ns; ++i) inv_r[i] = (float)(1.0 / (double)s[i * SPH_COLS + 3]);
     const Cells C = cell_layout(nq, ns, nm);
-    HostAcc acc{cells};
     const size_t n = (size_t)width * height;
+    std::vector<float> stack((bounces + 1) * 9);
+    const Stack st{stack.data(), 1};
     int live = 0;
     for (int row = 0; row < height; ++row)
         for (int col = 0; col < width; ++col) {
             float cot[6];
             for (int k = 0; k < 6; ++k) cot[k] = cot6[k * n + (size_t)row * width + col];
-            live += pixel_adjoint(P, quads, sph, inv_r, mats, cam, C, col, row, cot, acc);
+            // one lane's sequence of steps, as the kernel drives it
+            Lane L;
+            start_pixel(L, P, cam, col, row, cot, st);
+            bool done = false;
+            while (!done) {
+                const bool replay = L.replay;
+                Contrib c;
+                clear(c);
+                Path q;
+                Seg s;
+                step_segment(L, P, quads, sph, inv_r, mats, cam, st, q, s);
+                done = step_finish(L, P, quads, sph, inv_r, cam, C, st, q, s, c);
+                add_contrib(cells, C, c);
+                live += replay;
+            }
         }
     return live;
 }

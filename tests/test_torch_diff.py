@@ -16,6 +16,7 @@ Each oracle call (about 15 s here) runs once, in a module fixture.
 """
 
 import json
+import logging
 
 import jax
 import jax.numpy as jnp
@@ -137,6 +138,37 @@ def test_glass_grads_finite_and_close(glass_grads, key):
     na, nb = np.linalg.norm(a), np.linalg.norm(b)
     assert na > 0.0, f"{key}: the reference is all zero"
     assert abs(na - nb) <= 0.05 * na, (key, na, nb)
+
+
+# 2 bounces at 64x32: the Beer sphere's geometry gradient, and env texels
+# of a six-face 8x8 cubemap seen around it
+CUBE = dict(width=64, height=32, bounces=2, rng="counter", jitter=True,
+            roulette="off", env_mode="cubemap")
+
+
+@pytest.fixture(scope="module", params=["stochastic", "nearest"])
+def cube_grads(request):
+    """The port's plain diff path with a cubemap env vs the JAX oracle:
+    one oracle call per sampling."""
+    jscene, jcam = beer_scene(SceneBuilder, Material, make_camera)
+    faces = np.random.RandomState(8).rand(6 * 8, 8, 3).astype(np.float32)
+    jtex = texture_from_array(faces + np.float32(0.25))
+    return _compare(jscene, jcam, jtex,
+                    jax_cfg(**CUBE, env_sampling=request.param),
+                    _np_params(jscene, jtex, radii=True))
+
+
+@pytest.mark.parametrize("key", ["env_rgb", "sphere_centers", "sphere_radii"])
+def test_cubemap_grads_match_oracle(cube_grads, key):
+    """The diff path takes a cubemap (the JAX Pallas backward does, through
+    texture.py:406-423): env-texel and geometry gradients as the oracle's."""
+    lt, gt, lx, gx = cube_grads
+    np.testing.assert_allclose(lt, lx, rtol=1e-4)
+    a, b = gx[key], gt[key]
+    assert np.isfinite(b).all()
+    assert np.abs(a).max() > 0.0, f"{key}: the reference is all zero"
+    np.testing.assert_allclose(b, a, rtol=2e-3, atol=2e-3 * np.abs(a).max(),
+                               err_msg=key)
 
 
 def test_glass_sphere_center_grads_zero_on_both_sides(glass_grads):
@@ -262,6 +294,37 @@ def test_adam_inverse_render_loss_falls():
     assert losses[-1] < losses[0]
     assert params["albedo"].shape == init["albedo"].shape
     assert not params["albedo"].requires_grad
+
+
+def test_adam_inverse_render_logs_at_jax_steps(caplog):
+    """JAX's progress lines: ``inverse step %d loss %.6f`` at steps 0,
+    log_every, 2 * log_every, ... with that step's loss."""
+    from cpuperformanceraytracer_tpu_torch.utils.log import get_logger
+
+    scene, cam, tex, cfg = _port_beer(32, 8)
+    with torch.no_grad():
+        target = render_for_params({}, scene, cam, tex, cfg, 0)
+    m = scene.materials.albedo
+    init = {"albedo": torch.stack([m.x, m.y, m.z], -1) + 0.1}
+    caplog.set_level(logging.INFO, logger="cprt_torch")
+    _, losses = adam_inverse_render(
+        InverseProblem(scene, cam, tex, cfg, target), init, steps=12,
+        learning_rate=0.02, log_every=5, logger=get_logger())
+    lines = [r.getMessage() for r in caplog.records if r.name == "cprt_torch"]
+    assert lines == [f"inverse step {i} loss {losses[i]:.6f}" for i in (0, 5, 10)]
+
+
+@pytest.mark.parametrize("silent", [False, True])
+def test_cli_inverse_logs_every_10_steps(caplog, capsys, silent):
+    caplog.set_level(logging.INFO, logger="cprt_torch")
+    args = ["inverse", "--width", "32", "--height", "8", "--bounces", "1",
+            "--backend", "torch", "--env", "none", "--steps", "11"]
+    assert cli.main(args + ["--silent"] * silent) == 0
+    assert capsys.readouterr().out.startswith("inverse render: loss ")
+    steps = [r.getMessage().split()[2] for r in caplog.records
+             if r.name == "cprt_torch"
+             and r.getMessage().startswith("inverse step ")]
+    assert steps == ([] if silent else ["0", "10"])
 
 
 def test_diff_sample_wiring_on_cpu():

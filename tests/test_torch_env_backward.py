@@ -143,3 +143,50 @@ def test_zero_addends_change_no_texel_sum():
                                    rtol=1e-5, atol=1e-5)
     assert np.isnan(d_all[1][n_tex - 1].item())
     assert np.isfinite(d_all[1][:n_tex - 1].numpy()).all()
+
+
+@pytest.mark.parametrize("case", ["one_texel_3433", "zero_run"])
+def test_kernel_order_model_within_k_term_bound(case):
+    """Kernel D's order (run records, stable sort, segmented sum), as the
+    plain-torch model of torch_port_helpers, against index_add_ and a
+    float64 sum: each texel's sum of k addends within (k - 1) * 2^-24 *
+    sum|v| (at least 8 * 2^-24 * sum|v|) of the exact sum, as index_add_'s.
+    ``one_texel_3433``: the busiest texel of the 720p training step, hit
+    by 3433 pixels in runs among others; ``zero_run``: a run of zero
+    addends (a never-missed pixel) is dropped and its texel stays +0.0."""
+    from torch_port_helpers import kernel_d_order
+
+    rng = np.random.RandomState(12)
+    h, w, n_tex = 48, 128, 300
+    idx = rng.randint(0, n_tex, size=(h, w)).astype(np.int64)
+    g = rng.randn(3, h, w).astype(np.float32)
+    mt = rng.rand(3, h, w).astype(np.float32)
+    if case == "one_texel_3433":
+        run = np.arange(1000, 1400)                 # one long run, too
+        rest = rng.permutation(np.setdiff1d(np.arange(h * w), run))[:3033]
+        idx[idx == 7] = 8
+        idx.reshape(-1)[np.concatenate([run, rest])] = 7
+        assert (idx == 7).sum() == 3433
+    else:
+        idx[3, 10:50] = 299                          # texel 299: this run only
+        idx[idx == 299] = 298
+        idx[3, 10:50] = 299
+        mt[:, 3, 10:50] = 0.0
+    flat = torch.from_numpy(idx.reshape(-1))
+    got = kernel_d_order(torch.from_numpy(g), torch.from_numpy(idx),
+                         torch.from_numpy(mt), n_tex)
+    count = torch.bincount(flat, minlength=n_tex).double()
+    allow = torch.clamp(count - 1.0, min=8.0) * 2.0 ** -24
+    for c in range(3):
+        v = torch.from_numpy(g[c] * mt[c]).reshape(-1)
+        exact = torch.zeros(n_tex, dtype=torch.float64).index_add_(0, flat, v.double())
+        mag = torch.zeros(n_tex, dtype=torch.float64).index_add_(0, flat, v.abs().double())
+        library = torch.zeros(n_tex).index_add_(0, flat, v)
+        for name, d in (("model", got[c]), ("index_add_", library)):
+            err = (d.double() - exact).abs()
+            assert (err <= allow * mag).all(), (name, c, (err / (allow * mag)).max())
+        assert mag.max() > 0
+    if case == "zero_run":
+        assert all(d[299].item() == 0.0 and not torch.signbit(d[299]) for d in got)
+    else:
+        assert all(d[7] != 0 for d in got)

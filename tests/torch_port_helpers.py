@@ -96,3 +96,38 @@ def port_beer_scene(device="cpu"):
     from cpuperformanceraytracer_tpu_torch.scene.types import Material
 
     return beer_scene(SceneBuilder, Material, make_camera, device=device)
+
+
+def kernel_d_order(g, idx, mt, n_tex):
+    """Kernel D's texel sums in its own order, in plain torch on the CPU:
+    per chunk of 32 neighbouring pixels, each run of equal texels summed
+    by the kernel's segmented scan (5 shuffle steps, ``up + x``), the runs
+    with three zero sums dropped, the others as records in slot order, a
+    stable sort by texel, and each texel's records added in sorted order to
+    +0.0. Returns the three (n_tex,) planes."""
+    key = idx.reshape(-1).cpu()
+    v = (g * mt).reshape(3, -1).cpu()
+    n = key.numel()
+    m = (n + 31) // 32 * 32
+    key = torch.cat([key, torch.full((m - n,), -1, dtype=key.dtype)]).view(-1, 32)
+    v = torch.cat([v, torch.zeros((3, m - n))], 1).view(3, -1, 32)
+    lane = torch.arange(32)
+    head = torch.ones_like(key, dtype=torch.bool)
+    head[:, 1:] = key[:, 1:] != key[:, :-1]
+    start = torch.where(head, lane, torch.zeros_like(lane)).cummax(1).values
+    x = v.clone()
+    for d in (1, 2, 4, 8, 16):
+        up = torch.zeros_like(x)
+        up[..., d:] = x[..., :-d]
+        x = torch.where(lane - d >= start, up + x, x)
+    last = torch.ones_like(head)
+    last[:, :-1] = key[:, :-1] != key[:, 1:]
+    keep = (last & (key >= 0) & (x != 0).any(0)).reshape(-1)
+    keys = torch.where(keep, key.reshape(-1), torch.full_like(keep, n_tex,
+                                                             dtype=key.dtype))
+    order = torch.sort(keys, stable=True).indices
+    rec = keep[order].nonzero().squeeze(1)
+    slots = order[rec]
+    # the CPU's index_add_ adds in index order: each texel from +0.0 on
+    return tuple(torch.zeros(n_tex).index_add_(0, keys[slots], x[c].reshape(-1)[slots])
+                 for c in range(3))
