@@ -56,14 +56,28 @@ Phases, one line each; any failure raises and the exit code is not 0:
    with the stream held full;
 8. the training path: fwd_bwd_benchmark(backend="cuda") at the bench
    workload (counter RNG, params albedo + 0.05, sphere centers + 0.1 and
-   every env texel), 2 warmup + 64 timed steps in 2 spans; kernels C and
-   D launch once per step, A and B once more for the target; gradients
+   every env texel), JAX's protocol (6 warmup calls, one untimed span,
+   64 timed steps in 2 spans), once at K = 16 steps a dispatch (one CUDA
+   graph of 16 steps) and once at K = 1 (the per-step loop). Each run is
+   traced by torch.profiler, which counts the launches of kernels A, B,
+   C and D on the device: one a step of every warmup, untimed and timed
+   call, 16 more at K = 16 for the capture's warm-up run, and A and B
+   once more for the target; the wrappers' counters, which count no
+   capture and cannot see a replay, count the launches outside the
+   graph. A second, untraced run of the same bench gives ms/step; for
+   each K the device time per step with the stream kept full, the idle
+   share and the host's enqueue time per dispatch. torch.profiler over
+   one replay of a K = 16 graph counts 16 launches each of A-D and
+   splits its device time by kernel; the graphed grad_sum and losses
+   bit-equal to 16 ungraphed steps summed in order, and 16 graphed Adam
+   steps (capturable) leave
+   the parameters and losses bit-equal to 16 ungraphed ones; gradients
    finite and within 2e-2 relative L2 of the plain path's on the card;
-   the device time per step with the stream kept full and the idle
-   share; two steps on one frame bit-equal (loss and gradients); the same
-   step with a cubemap env (six gradient_sky(256, 256) faces) within 2e-2
+   two steps on one frame bit-equal (loss and gradients); the same step
+   with a cubemap env (six gradient_sky(256, 256) faces) within 2e-2
    relative L2 of the plain path's; then 8 Adam steps of
-   adam_inverse_render on the albedo, whose loss must fall;
+   adam_inverse_render on the albedo (one graph of 8), whose loss must
+   fall;
 9. kernel E (env lookup + texel fetch) vs its plain version on phase 3's
    720p planes, for all six env_mode x env_sampling pairs (equirect
    gradient_sky(512, 256); cubemap six gradient_sky(256, 256) faces):
@@ -103,7 +117,17 @@ Phases, one line each; any failure raises and the exit code is not 0:
    D, E and G and ``index_add_`` at 720p timed both ways, back to back
    (as phases 4-12 time them) and with the stream held full (as the
    probes time theirs): where back to back is longer, the host's
-   enqueue set its pace.
+   enqueue set its pace;
+15. the oracle integrator (backend "oracle", plain torch on the card):
+   OfflineRenderer at the forward workload, 1 warmup + 4 timed frames,
+   against the kernel route's 4 frames (means within 1e-2, under 1% of
+   pixels off by > 1e-3: the oracle takes the sphere normal as
+   safe_normalize(hit_rel), kernel A as hit_rel * (1/r)), with its peak
+   memory; the cornell box 256x64, 2 bounces, against kernel A at rtol
+   1e-4, atol 1e-5; path-replay gradients (diff/path_replay.py) against
+   plain autograd through the oracle at 320x180, 8 bounces, bilinear env
+   (which the kernel routes refuse), rtol 1e-4 and atol 1e-7, with the
+   peak memory and time of each.
 
 Then one JSON line with each kernel's numbers (times, launches on the
 main paths, and the bound: the larger of its bytes over 3.35 TB/s and
@@ -127,6 +151,8 @@ import torch
 
 WARMUP, FRAMES = 2, 64
 STEPS = 64                      # timed training steps (2 spans)
+STEPS_PER_DISPATCH = 16         # the training bench's K (JAX's default)
+WARMUP_CALLS = 6                # fwd_bwd_benchmark's warmup calls
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FP32 FLOP/s,
 # TF32 tensor-core FLOP/s
@@ -495,19 +521,68 @@ def phase_kernel_d(dev, planes, idx, tex) -> dict:
                 busiest_texel={"all": int(count.max()), "nonzero": busiest_nz})
 
 
+def replay_profile(step, k: int) -> tuple:
+    """(launches, ms a step): one call of ``step`` (K training steps) on
+    the device, by kernel (torch.profiler's CUDA activity; a CUDA graph
+    replay shows each of its kernel nodes). The launches count kernels
+    A-D by name; the time goes to A, B, C, D's two kernels, D's library
+    sort and the rest (the small torch ops), each per step."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    counts = {name: 0 for name in TRAIN_KERNELS.values()}
+    groups = {"A": ("render_planes_kernel",), "B": ("env_accumulate_kernel",),
+              "C": ("bwd_tables_kernel",),
+              "D": ("env_runs_kernel", "texel_sums_kernel"),
+              "D_sort": ("RadixSort", "fill_reverse_indices")}
+    ms = dict.fromkeys([*groups, "other"], 0.0)
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        for name in counts:
+            if name in e.key:
+                counts[name] += e.count
+        group = next((g for g, names in groups.items()
+                      if any(n in e.key for n in names)), "other")
+        ms[group] += us / 1e3 / k
+    return counts, ms
+
+
+# kernels A-D by their CUDA function names (D's first kernel: the runs)
+TRAIN_KERNELS = {"render_planes": "render_planes_kernel",
+                 "env_accumulate": "env_accumulate_kernel",
+                 "bwd_tables": "bwd_tables_kernel",
+                 "env_backward": "env_runs_kernel"}
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
 def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
-    """Phase 8: the training path through the kernels."""
+    """Phase 8: the training path through the kernels, K = 16 steps a
+    dispatch (one CUDA graph) and K = 1 (the per-step loop)."""
     from cpuperformanceraytracer_tpu_torch.diff.benchgrad import (
+        grad_steps,
+        bench_loss,
         default_bench_params,
         fwd_bwd_benchmark,
+        make_grad_step_k,
     )
     from cpuperformanceraytracer_tpu_torch.diff.grad import (
         loss_and_grad,
         render_for_params,
+        value_and_grad,
     )
     from cpuperformanceraytracer_tpu_torch.diff.inverse import (
         InverseProblem,
         adam_inverse_render,
+        make_train_step,
+        make_train_step_k,
     )
     from cpuperformanceraytracer_tpu_torch.kernels.backward import bwd_tables
     from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
@@ -516,50 +591,126 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
 
     cfg = glass_cfg.replace(rng="counter", backend="cuda")
     kernels = (render_planes, env_accumulate, bwd_tables, env_backward)
-    for k in kernels:
-        k.launches = 0
-    r = fwd_bwd_benchmark(cfg, scene, cam, tex, steps=STEPS, warmup_steps=2,
-                          spans=2)
-    launches = {k.__name__: k.launches for k in kernels}
-    run = 2 + r["steps_timed"]
-    expect = {"render_planes": run + 1, "env_accumulate": run + 1,
-              "bwd_tables": run, "env_backward": run}
-    if launches != expect:
-        raise AssertionError(f"training launches {launches}, expected {expect}")
-    if not r["grads_finite"]:
-        raise AssertionError("training: gradients not finite")
-    phase("training bench", f"{r['ms_per_step']:.4f} ms/step; "
-          f"{r['Mrays_per_s']:.1f} Mrays/s; spans {r['span_ms']} ms; "
-          f"launches {launches}")
-
     params = default_bench_params(scene, tex)
+    loss_fn = bench_loss(cfg, scene, cam, tex)
+    runs = {}
+    for k in (STEPS_PER_DISPATCH, 1):
+        # the main path's run, traced: kernel launches on the device
+        for kern in kernels:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            traced = fwd_bwd_benchmark(cfg, scene, cam, tex, steps=STEPS,
+                                       steps_per_dispatch=k, spans=2)
+            torch.cuda.synchronize()
+        wrapper = {kern.__name__: kern.launches for kern in kernels}
+        launches = {name: sum(e.count for e in prof.key_averages()
+                              if fn in e.key)
+                    for name, fn in TRAIN_KERNELS.items()}
+        # a step a call of the warmup, the untimed span (half the timed
+        # steps) and the timed spans; K > 1: the capture's warm-up run
+        # (K steps, outside the graph); A and B once more for the target
+        steps_run = WARMUP_CALLS * k + traced["steps_timed"] * 3 // 2
+        outside = k + 1 if k > 1 else steps_run + 1
+        expect = {"render_planes": steps_run + (k if k > 1 else 0) + 1}
+        expect["env_accumulate"] = expect["render_planes"]
+        expect["bwd_tables"] = expect["env_backward"] = expect[
+            "render_planes"] - 1
+        expect_wrapper = {"render_planes": outside, "env_accumulate": outside,
+                          "bwd_tables": outside - 1, "env_backward": outside - 1}
+        if launches != expect or wrapper != expect_wrapper:
+            raise AssertionError(
+                f"training K={k}: device launches {launches}, expected "
+                f"{expect}; wrapper counts {wrapper}, expected "
+                f"{expect_wrapper}")
+        del prof
+        r = fwd_bwd_benchmark(cfg, scene, cam, tex, steps=STEPS,
+                              steps_per_dispatch=k, spans=2)
+        if not (r["grads_finite"] and traced["grads_finite"]) or r[
+                "steps_per_dispatch"] != k:
+            raise AssertionError(f"training K={k}: {r}")
+        if k > 1:
+            step_k = make_grad_step_k(loss_fn, k)
+
+            def call():
+                step_k(params, 1)
+        else:
+            def call():
+                value_and_grad(loss_fn, params, 1)
+        call()
+        per_call = r["ms_per_step"] * k
+        # windows of 2 calls; the sleep covers four times the host clock's
+        # time for them (~2 GHz)
+        n = 2
+        busy_ms = device_frame_ms(call, n, int(4 * n * per_call * 1e-3 * 2.0e9),
+                                  windows=8) / k
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        enqueue_ms = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        runs[k] = dict(r, launches=launches, wrapper_launches=wrapper,
+                       traced_ms_per_step=traced["ms_per_step"],
+                       device_busy_ms_per_step=busy_ms,
+                       idle_share=1.0 - busy_ms / r["ms_per_step"],
+                       host_enqueue_ms_per_dispatch=enqueue_ms)
+        phase("training bench", f"K={k}: {r['ms_per_step']:.4f} ms/step; "
+              f"{r['Mrays_per_s']:.1f} Mrays/s; spans {r['span_ms']} ms; "
+              f"device busy {busy_ms:.4f} ms/step; idle share "
+              f"{runs[k]['idle_share']:.4f}; host enqueue {enqueue_ms:.4f} "
+              f"ms/dispatch; traced run {traced['ms_per_step']:.4f} ms/step, "
+              f"device launches {launches} ({steps_run} steps), wrapper "
+              f"counts {wrapper}")
+
+    # one replay of the K-step graph: K launches of each of kernels A-D
+    step_k = make_grad_step_k(loss_fn, STEPS_PER_DISPATCH)
+    got_sum, got_losses = step_k(params, 1)
+    replay, replay_ms = replay_profile(lambda: step_k(params, 1),
+                                       STEPS_PER_DISPATCH)
+    want = {name: STEPS_PER_DISPATCH for name in replay}
+    if {n: replay[n] for n in want} != want:
+        raise AssertionError(f"one replay launched {replay}, expected {want}")
+    want_sum, want_losses = grad_steps(
+        loss_fn, params, [1 + i for i in range(STEPS_PER_DISPATCH)])
+    torch.cuda.synchronize()
+    if not (bits_equal(got_losses, want_losses) and all(
+            bits_equal(got_sum[n], want_sum[n]) for n in params)):
+        raise AssertionError("graphed grad_sum/losses differ from the "
+                             "ungraphed steps")
+    del got_sum, want_sum
+
     with torch.no_grad():
         target = render_for_params({}, scene, cam, tex, cfg, 0)
-    # windows of 2 steps (~420 launches): the sleep covers four times the
-    # host clock's time for them (~2 GHz)
-    n = 2
-    busy_ms = device_frame_ms(
-        lambda: loss_and_grad(params, target, scene, cam, tex, cfg, 1), n,
-        int(4 * n * r["ms_per_step"] * 1e-3 * 2.0e9), windows=8)
-    idle = 1.0 - busy_ms / r["ms_per_step"]
-    # the host's own time to enqueue a step (no synchronisation inside)
+    problem = InverseProblem(scene, cam, tex, cfg, target)
+
+    def adam_copy():
+        p = {n: v.detach().clone().requires_grad_() for n, v in params.items()}
+        return p, torch.optim.Adam(list(p.values()), lr=0.01, capturable=True)
+
+    pg, opt_g = adam_copy()
+    pu, opt_u = adam_copy()
+    lg = make_train_step_k(problem, opt_g, STEPS_PER_DISPATCH,
+                           resample_frames=True)(pg, 1)
+    plain = make_train_step(problem, opt_u, resample_frames=True)
+    lu = torch.stack([plain(pu, 1 + i) for i in range(STEPS_PER_DISPATCH)])
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        loss_and_grad(params, target, scene, cam, tex, cfg, 1)
-    enqueue_ms = (time.perf_counter() - t0) / n * 1e3
-    torch.cuda.synchronize()
+    if not (bits_equal(lg, lu) and all(bits_equal(pg[n].detach(),
+                                                   pu[n].detach())
+                                       for n in params)):
+        raise AssertionError("graphed Adam steps differ from ungraphed ones")
+    del pg, pu, opt_g, opt_u
 
     loss_a, got = loss_and_grad(params, target, scene, cam, tex, cfg, 1)
     loss_b, again = loss_and_grad(params, target, scene, cam, tex, cfg, 1)
     if not (torch.equal(loss_a, loss_b) and all(
-            torch.equal(got[k].view(torch.int32), again[k].view(torch.int32))
-            for k in params)):
+            bits_equal(got[n], again[n]) for n in params)):
         raise AssertionError("training: two steps on one frame differ")
     del again
     _, want = loss_and_grad(params, target, scene, cam, tex,
                             cfg.replace(backend="torch"), 1)
-    rels = {k: rel_l2(got[k], want[k]) for k in params}
+    rels = {n: rel_l2(got[n], want[n]) for n in params}
     if max(rels.values()) >= 2e-2:
         raise AssertionError(f"training gradients vs plain path: {rels}")
     del got, want
@@ -574,36 +725,48 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
     _, cgot = loss_and_grad(cparams, ctarget, scene, cam, cube, ccfg, 1)
     _, cwant = loss_and_grad(cparams, ctarget, scene, cam, cube,
                              ccfg.replace(backend="torch"), 1)
-    crels = {k: rel_l2(cgot[k], cwant[k]) for k in cparams}
+    crels = {n: rel_l2(cgot[n], cwant[n]) for n in cparams}
     if max(crels.values()) >= 2e-2 or not all(
             torch.isfinite(v).all() and v.norm() > 0 for v in cgot.values()):
         raise AssertionError(f"cubemap training gradients vs plain path: {crels}")
     del cgot, cwant
 
+    # 8 Adam steps: K = 8, one CUDA graph (JAX's auto rule)
     m = scene.materials.albedo
     albedo = torch.stack([m.x, m.y, m.z], -1)
-    _, losses = adam_inverse_render(
-        InverseProblem(scene, cam, tex, cfg, target), {"albedo": albedo + 0.05},
-        steps=8, learning_rate=0.01)
+    _, losses = adam_inverse_render(problem, {"albedo": albedo + 0.05},
+                                    steps=8, learning_rate=0.01)
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"inverse: losses {losses}")
-    phase("training path", f"{r['ms_per_step']:.4f} ms/step; "
-          f"{r['Mrays_per_s']:.1f} Mrays/s (1280x720 glass_spheres 8 bounces, "
-          f"counter RNG, env gradient_sky(512,256)); spans {r['span_ms']} ms, "
-          f"spread {r['spread']:.4f}; grads_finite {r['grads_finite']}; "
-          f"launches {launches}; device busy {busy_ms:.4f} ms/step, idle "
-          f"share {idle:.4f}; host enqueue {enqueue_ms:.4f} ms/step; two "
-          f"steps bit-equal; grads vs plain path relative L2 "
-          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+    g, u = runs[STEPS_PER_DISPATCH], runs[1]
+    phase("training path", f"K={STEPS_PER_DISPATCH}: "
+          f"{g['ms_per_step']:.4f} ms/step, device busy "
+          f"{g['device_busy_ms_per_step']:.4f}, idle share "
+          f"{g['idle_share']:.4f}, host enqueue "
+          f"{g['host_enqueue_ms_per_dispatch']:.4f} ms/dispatch; K=1: "
+          f"{u['ms_per_step']:.4f} ms/step, device busy "
+          f"{u['device_busy_ms_per_step']:.4f}, idle share "
+          f"{u['idle_share']:.4f}, host enqueue "
+          f"{u['host_enqueue_ms_per_dispatch']:.4f} ms/dispatch (1280x720 "
+          f"glass_spheres 8 bounces, counter RNG, env gradient_sky(512,256)); "
+          f"one replay launched {replay}, device ms a step by kernel "
+          + ", ".join(f"{n} {v:.4f}" for n, v in replay_ms.items())
+          + f"; graphed grad_sum and losses "
+          f"bit-equal to {STEPS_PER_DISPATCH} ungraphed steps; "
+          f"{STEPS_PER_DISPATCH} graphed Adam steps bit-equal to ungraphed "
+          f"capturable ones; two steps bit-equal; grads vs plain path "
+          f"relative L2 " + ", ".join(f"{n} {v:.3e}" for n, v in rels.items())
           + "; cubemap step vs plain path "
-          + ", ".join(f"{k} {v:.3e}" for k, v in crels.items())
+          + ", ".join(f"{n} {v:.3e}" for n, v in crels.items())
           + f"; inverse losses {[round(x, 6) for x in losses]}; GPU {gpu}")
-    summary = dict(r, device_busy_ms_per_step=busy_ms, idle_share=idle,
-                   host_enqueue_ms_per_step=enqueue_ms,
+    summary = dict(k16=g, k1=u, replay_kernel_launches=replay,
+                   replay_ms_per_step_by_kernel=replay_ms,
+                   graphed_bit_equal=True, adam_graphed_bit_equal=True,
                    grad_rel_l2_vs_plain=rels, bit_equal_twice=True,
-                   cubemap_grad_rel_l2_vs_plain=crels, inverse_losses=losses,
-                   warmup_steps=2)
-    return {"launches": launches, "summary": summary}
+                   cubemap_grad_rel_l2_vs_plain=crels, inverse_losses=losses)
+    return {"launches": g["launches"], "launches_k1": u["launches"],
+            "summary": summary}
+
 
 TEXTURED_FRAMES = 16            # timed textured_1080 frames (phase 12)
 OUT_DIR = "build/chip_smoke"    # the PNG and the checkpoint (gitignored)
@@ -1081,6 +1244,108 @@ def phase_probes(dev, gpu) -> tuple:
             p1_gather_queries=p1["queries"])
 
 
+ORACLE_FRAMES = 4              # timed oracle frames at 720p (phase 15)
+
+
+def phase_oracle(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
+    """Phase 15: the oracle integrator (backend "oracle") on the card."""
+    from cpuperformanceraytracer_tpu_torch.config import RenderConfig
+    from cpuperformanceraytracer_tpu_torch.diff.benchgrad import (
+        bench_loss,
+        default_bench_params,
+    )
+    from cpuperformanceraytracer_tpu_torch.diff.grad import (
+        image_loss,
+        value_and_grad,
+    )
+    from cpuperformanceraytracer_tpu_torch.diff.path_replay import (
+        render_for_params_replay,
+    )
+    from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
+        pack_tables,
+        render_planes,
+    )
+    from cpuperformanceraytracer_tpu_torch.render.driver import OfflineRenderer
+    from cpuperformanceraytracer_tpu_torch.render.integrator import render_frame
+    from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
+
+    # the forward workload through the oracle, against the kernel route
+    ocfg = glass_cfg.replace(backend="oracle", num_frames=ORACLE_FRAMES,
+                             warmup_frames=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    oracle = OfflineRenderer(ocfg, texture=tex, scene=scene, camera=cam,
+                             device=dev, silent=True)
+    timer = oracle.run()
+    frame_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    kernel = OfflineRenderer(glass_cfg.replace(num_frames=ORACLE_FRAMES,
+                                               warmup_frames=0),
+                             texture=tex, scene=scene, camera=cam, silent=True)
+    kernel.run()
+    if not torch.isfinite(oracle.accum).all():
+        raise AssertionError("oracle frame not finite")
+    off = max(robust(oracle.accum[c], kernel.accum[c],
+                     f"oracle vs kernel route channel {c}", 1e-2)
+              for c in range(3))
+
+    # a diffuse frame strictly: the cornell box, counter RNG, no env
+    dcfg = RenderConfig(width=256, height=64, bounces=2, scene="cornell_box",
+                        env_mode="none", rng="counter", backend="oracle")
+    dscene, dcam = scene_by_name("cornell_box", device=dev)
+    got = render_frame(dscene, dcam, None, dcfg, 3)
+    # without an env map kernel A adds the ambient itself: r, g, b are the
+    # colour
+    want = render_planes(pack_tables(dscene, dcam, dcfg, dev), dcfg, 3)[0:3]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    diffuse_err = (got - want).abs().max().item()
+
+    # path replay vs plain autograd through the oracle, with peak memory
+    rcfg = RenderConfig(width=320, height=180, bounces=8, rng="counter",
+                        env_mode="equirect", env_sampling="bilinear",
+                        backend="oracle")
+    params = default_bench_params(scene, tex)
+    plain_loss = bench_loss(rcfg, scene, cam, tex)
+    with torch.no_grad():
+        target = render_frame(scene, cam, tex, rcfg, 0)
+
+    def replay_loss(p, frame):
+        return image_loss(render_for_params_replay(p, scene, cam, tex, rcfg,
+                                                   frame), target)
+
+    out, peak_gib, secs = {}, {}, {}
+    for name, fn in (("plain", plain_loss), ("replay", replay_loss)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[name] = value_and_grad(fn, params, 1)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        peak_gib[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    (lp, gp), (lr, gr) = out["plain"], out["replay"]
+    torch.testing.assert_close(lr, lp, rtol=1e-4, atol=1e-7)
+    for n in params:
+        if not gp[n].abs().max() > 0:
+            raise AssertionError(f"path replay: plain {n} gradient is zero")
+        torch.testing.assert_close(gr[n], gp[n], rtol=1e-4, atol=1e-7)
+    phase("oracle", f"720p glass 8 bounces (wang, env gradient_sky(512,256)) "
+          f"{timer.mean_ms:.2f} ms/frame over {ORACLE_FRAMES} frames, peak "
+          f"{frame_peak:.2f} GiB; vs kernel route {off:.5%} px off; cornell "
+          f"256x64 vs kernel A route max abs err {diffuse_err:.3g}; path "
+          f"replay 320x180 8 bounces bilinear: grads equal plain (rtol "
+          f"1e-4), peak above the inputs plain {peak_gib['plain']:.3f} GiB "
+          f"({secs['plain']:.2f} s), replay {peak_gib['replay']:.3f} GiB "
+          f"({secs['replay']:.2f} s); GPU {gpu}")
+    return dict(ms_per_frame=timer.mean_ms, frames=ORACLE_FRAMES,
+                frame_peak_gib=frame_peak, px_off_vs_kernel_route=off,
+                diffuse_max_abs_err=diffuse_err,
+                replay_peak_gib=peak_gib["replay"],
+                plain_peak_gib=peak_gib["plain"], replay_s=secs["replay"],
+                plain_s=secs["plain"])
+
+
 def phase_held_times(dev, planes, idx, tex, cfg, accum) -> dict:
     """Phase 14, last: small kernels timed back to back and held full."""
     from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
@@ -1281,6 +1546,9 @@ def main() -> int:
     probes["held_stream_720p"] = phase_held_times(dev, planes, gi, tex, cfg,
                                                   accum)
 
+    # ---- phase 15: the oracle integrator ----------------------------------
+    o = phase_oracle(dev, scene, cam, tex, cfg, gpu)
+
     # ---- the kernels' numbers ---------------------------------------------
     n_px = cfg.width * cfg.height
     tex_bytes = 3 * 4 * tex.width * tex.height
@@ -1296,7 +1564,8 @@ def main() -> int:
              launches=launches["render_planes"], max_abs_err=glass_err,
              ms=ms_a, plain_ms=plain_ms_a, bound=bound_a, library_ms=None,
              launches_by_path={"forward": launches["render_planes"],
-                               "training": t["launches"]["render_planes"]},
+                               "training": t["launches"]["render_planes"],
+                               "training_k1": t["launches_k1"]["render_planes"]},
              live_segments=sum(live_a), lane_utilisation=util_a,
              lane_utilisation_one_thread_per_pixel=util_pixel,
              resident_blocks_per_sm=per_sm, ptxas=regs_a),
@@ -1306,15 +1575,22 @@ def main() -> int:
              launches=launches["env_accumulate"], max_abs_err=err_b,
              ms=ms_b, plain_ms=plain_ms_b, bound=bound_b, library_ms=None,
              launches_by_path={"forward": launches["env_accumulate"],
-                               "training": t["launches"]["env_accumulate"]}),
+                               "training": t["launches"]["env_accumulate"],
+                               "training_k1": t["launches_k1"]["env_accumulate"]}),
         dict(name="bwd_tables",
              source="cpuperformanceraytracer_tpu_torch/csrc/backward.cu",
              replaces="cpuperformanceraytracer_tpu/kernels/backward.py:230",
-             launches=t["launches"]["bwd_tables"], **c),
+             launches=t["launches"]["bwd_tables"],
+             launches_by_path={"training": t["launches"]["bwd_tables"],
+                               "training_k1": t["launches_k1"]["bwd_tables"]},
+             **c),
         dict(name="env_backward",
              source="cpuperformanceraytracer_tpu_torch/csrc/env_backward.cu",
              replaces="cpuperformanceraytracer_tpu/diff/segsum.py:46",
-             launches=t["launches"]["env_backward"], **d),
+             launches=t["launches"]["env_backward"],
+             launches_by_path={"training": t["launches"]["env_backward"],
+                               "training_k1": t["launches_k1"]["env_backward"]},
+             **d),
         dict(name="env_gather",
              source="cpuperformanceraytracer_tpu_torch/csrc/env_gather.cu",
              replaces="cpuperformanceraytracer_tpu/kernels/env_gather.py:102",
@@ -1344,7 +1620,7 @@ def main() -> int:
                                     "warmup": WARMUP},
                       "training_path": t["summary"],
                       "textured_path": x["summary"],
-                      "probes": probes}))
+                      "oracle": o, "probes": probes}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

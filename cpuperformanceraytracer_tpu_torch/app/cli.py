@@ -18,7 +18,9 @@ prints a stats line (``--live``: the image in the terminal, ANSI
 truecolor); keys on a tty: ``s`` writes a timestamped screenshot, ``q``
 stops. ``bench`` runs named configs (``config.BENCH_CONFIGS``) and prints
 one JSON line each, naming the env texture (a procedural sky). ``bench-grad`` prints one
-JSON line: the timed fwd+bwd step of ``diff/benchgrad.py``. ``inverse``
+JSON line: the timed fwd+bwd step of ``diff/benchgrad.py``, K steps a
+dispatch (``--steps-per-dispatch``: 16 by default, one CUDA graph of K
+steps on the card; 1 is the per-step loop). ``inverse``
 recovers perturbed albedos and sphere centers by Adam, logs the loss
 every 10 steps on stderr (unless ``--silent``) and prints the loss before
 and after. The two gradient commands use the counter RNG.
@@ -27,7 +29,9 @@ and after. The two gradient commands use the counter RNG.
 gradient sky) or a path to a Radiance .hdr equirect map; ``--cubemap``
 takes six .hdr faces (px nx py ny pz nz) instead. ``--backend cuda`` (the
 default) runs the CUDA kernels on the GPU; ``--backend torch`` the
-plain-torch versions on the CPU.
+plain-torch versions on the CPU; ``--backend oracle`` the oracle
+integrator on the CPU (``render/integrator.py``; on ``bench-grad`` with
+path replay, 4 steps and K = 1 by default, as the JAX package's ``xla``).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import os
 import sys
 
 from cpuperformanceraytracer_tpu_torch.config import (
+    BACKENDS,
     BENCH_CONFIGS,
     RenderConfig,
     resolve_device,
@@ -227,8 +232,17 @@ def cmd_bench_grad(a) -> int:
     from cpuperformanceraytracer_tpu_torch.diff.benchgrad import fwd_bwd_benchmark
 
     cfg = _cfg(a, rng="counter")
+    steps, k = 64, 16
+    if cfg.backend == "oracle":
+        # path replay (diff/path_replay.py) takes seconds a step at 720p:
+        # a small default protocol unless the caller sized it
+        cfg = cfg.replace(remat_bounces=True)
+        steps, k = 4, 1
     _, scene, cam, tex = _problem(a, cfg)
-    result = fwd_bwd_benchmark(cfg, scene, cam, tex, steps=a.steps)
+    result = fwd_bwd_benchmark(
+        cfg, scene, cam, tex, steps=steps if a.steps is None else a.steps,
+        steps_per_dispatch=k if a.steps_per_dispatch is None
+        else a.steps_per_dispatch)
     out = {"metric": "fwd_bwd_ms_per_step",
            "config": f"{cfg.width}x{cfg.height} spp{cfg.spp} "
                      f"b{cfg.bounces} env={cfg.env_mode} {cfg.backend}"}
@@ -281,7 +295,7 @@ def _add_common(p) -> None:
                    help="six .hdr faces: a cubemap env instead of --env")
     p.add_argument("--env-sampling", default="stochastic",
                    choices=["stochastic", "nearest", "bilinear"])
-    p.add_argument("--backend", default="cuda", choices=["cuda", "torch"])
+    p.add_argument("--backend", default="cuda", choices=list(BACKENDS))
 
 
 def _add_render(p) -> None:
@@ -317,12 +331,17 @@ def main(argv=None) -> int:
     p = sub.add_parser("bench", help="run named benchmark configs")
     p.add_argument("configs", nargs="*", default=None)
     p.add_argument("--frames", type=int, default=30)
-    p.add_argument("--backend", default="cuda", choices=["cuda", "torch"])
+    p.add_argument("--backend", default="cuda", choices=list(BACKENDS))
     p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("bench-grad", help="timed fwd+bwd step throughput")
     _add_common(p)
-    p.add_argument("--steps", type=int, default=64)
+    p.add_argument("--steps", type=int, default=None,
+                   help="timed steps (default 64; 4 with --backend oracle)")
+    p.add_argument("--steps-per-dispatch", type=int, default=None,
+                   help="K steps a dispatch, one CUDA graph on the card "
+                        "(default 16; 1 with --backend oracle; 1 is the "
+                        "per-step loop)")
     p.set_defaults(fn=cmd_bench_grad)
 
     p = sub.add_parser("inverse", help="inverse-rendering demo")

@@ -10,11 +10,17 @@ training step of ``chip_smoke.py`` phase 8 (1280x720 glass_spheres, 8
 bounces, counter RNG, env ``gradient_sky(512, 256)``, the
 ``default_bench_params``) through the API both trees share:
 
-- ``ms_per_step``: ``fwd_bwd_benchmark``, 2 warmup + 64 timed steps in
-  2 spans (host clock between device synchronisations);
-- ``host_enqueue_ms``: the host's time to enqueue one step while a sleep
-  kernel holds the stream (so no call waits for the device), the mean
-  of 16 windows of 2 steps;
+- ``ms_per_step``: one protocol for both trees, the per-step loop (one
+  ungraphed step a call, the step the tree's own bench runs at K = 1): 2
+  warmup steps on frame 0, then 64 steps on frames 1-64 in 2 spans, each
+  timed on the host clock between device synchronisations;
+- ``ms_per_step_k16``: ``fwd_bwd_benchmark`` at K = 16 steps a dispatch
+  (one CUDA graph, JAX's protocol), only in a tree that has
+  ``make_grad_step_k`` (else null): compare it with the same tree's
+  ``ms_per_step``, not with another tree's;
+- ``host_enqueue_ms``: the host's time to enqueue the same ungraphed
+  step while a sleep kernel holds the stream (so no call waits for the
+  device), the mean of 16 windows of 2 steps;
 - ``device_busy_ms``: CUDA events around the same windows, the stream
   kept full;
 - ``host_top``: the 12 functions with the most own host time over 8
@@ -37,8 +43,7 @@ CHILD = r"""
 import cProfile, json, pstats, subprocess, time
 import torch
 from cpuperformanceraytracer_tpu_torch.config import RenderConfig
-from cpuperformanceraytracer_tpu_torch.diff.benchgrad import (
-    default_bench_params, fwd_bwd_benchmark)
+from cpuperformanceraytracer_tpu_torch.diff import benchgrad
 from cpuperformanceraytracer_tpu_torch.diff.grad import (
     loss_and_grad, render_for_params)
 from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
@@ -51,14 +56,36 @@ cfg = RenderConfig(width=1280, height=720, bounces=8, spp=1,
                    env_sampling="stochastic", rng="counter", backend="cuda")
 tex = texture_from_array(gradient_sky(512, 256), dev)
 scene, cam = scene_by_name(cfg.scene, device=dev)
-r = fwd_bwd_benchmark(cfg, scene, cam, tex, steps=64, warmup_steps=2,
-                      spans=2)
-params = default_bench_params(scene, tex)
-with torch.no_grad():
-    target = render_for_params({}, scene, cam, tex, cfg, 0)
+params = benchgrad.default_bench_params(scene, tex)
+if hasattr(benchgrad, "bench_loss"):   # the step its bench runs at K = 1
+    from cpuperformanceraytracer_tpu_torch.diff.grad import value_and_grad
+    loss_fn = benchgrad.bench_loss(cfg, scene, cam, tex)
 
-def step():
-    loss_and_grad(params, target, scene, cam, tex, cfg, 1)
+    def step(frame=1):
+        value_and_grad(loss_fn, params, frame)
+else:
+    with torch.no_grad():
+        target = render_for_params({}, scene, cam, tex, cfg, 0)
+
+    def step(frame=1):
+        loss_and_grad(params, target, scene, cam, tex, cfg, frame)
+
+for _ in range(2):
+    step(0)
+torch.cuda.synchronize()
+span_ms, frame = [], 1
+for _ in range(2):
+    t0 = time.perf_counter()
+    for _ in range(32):
+        step(frame)
+        frame += 1
+    torch.cuda.synchronize()
+    span_ms.append((time.perf_counter() - t0) / 32 * 1e3)
+k16 = None
+if hasattr(benchgrad, "make_grad_step_k"):
+    k16 = benchgrad.fwd_bwd_benchmark(cfg, scene, cam, tex, steps=64,
+                                      steps_per_dispatch=16,
+                                      spans=2)["ms_per_step"]
 
 # windows of 2 steps (~420 launches): fewer than the stream's launch
 # queue holds, or the host would block until the sleep ends
@@ -93,13 +120,15 @@ gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True,
                      text=True, timeout=60).stdout.strip().splitlines()[0]
 print("RESULT " + json.dumps({
-    "ms_per_step": r["ms_per_step"], "span_ms": r["span_ms"],
+    "ms_per_step": sum(span_ms) / len(span_ms), "span_ms": span_ms,
+    "ms_per_step_k16": k16,
     "host_enqueue_ms": enqueue, "device_busy_ms": busy,
     "host_top": [[round(t, 4), c, name] for t, c, name in top],
     "gpu": gpu}))
 """
 
-METRICS = ("ms_per_step", "host_enqueue_ms", "device_busy_ms")
+METRICS = ("ms_per_step", "ms_per_step_k16", "host_enqueue_ms",
+           "device_busy_ms")
 
 
 def run_tree(tree: str, timeout: float) -> dict:
@@ -135,11 +164,13 @@ def main(argv=None) -> int:
         print(json.dumps(row), flush=True)
     for tree in a.trees:
         mine = [r for r in rows if r["tree"] == tree]
-        print(json.dumps({"tree": tree, "runs": len(mine), **{
-            k: {"mean": statistics.mean(r[k] for r in mine),
-                "min": min(r[k] for r in mine),
-                "max": max(r[k] for r in mine)} for k in METRICS}}),
-            flush=True)
+        summary = {}
+        for k in METRICS:
+            got = [r[k] for r in mine if r[k] is not None]
+            summary[k] = {"mean": statistics.mean(got), "min": min(got),
+                          "max": max(got)} if got else None
+        print(json.dumps({"tree": tree, "runs": len(mine), **summary}),
+              flush=True)
     if a.out:
         with open(os.path.join(a.out, "runs.jsonl"), "w") as f:
             for r in rows:

@@ -11,8 +11,10 @@ JAX package's named presets without those knobs.
 ``backend`` picks the implementation of every kernel: ``"cuda"`` (the
 default) runs the hand-written CUDA kernels on the GPU and raises where
 there is none; ``"torch"`` is the caller's explicit request for the
-plain-torch versions, on the device the caller names (the CPU unless
-told otherwise). ``resolve_device`` maps the two to a device.
+plain-torch versions of the kernels, and ``"oracle"`` for the oracle
+integrator (``render/integrator.py``, the JAX package's ``"xla"``
+route), both on the device the caller names (the CPU unless told
+otherwise). ``resolve_device`` maps a backend to a device.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import dataclasses
 from dataclasses import dataclass
 
 import torch
+
+
+BACKENDS = ("cuda", "torch", "oracle")
 
 
 @dataclass(frozen=True)
@@ -55,7 +60,10 @@ class RenderConfig:
     # identical either way), so the field changes nothing
     early_exit: bool = True
 
-    backend: str = "cuda"                      # or "torch"
+    backend: str = "cuda"                      # or "torch", "oracle"
+    # the oracle's path-replay backward: each bounce checkpointed, replayed
+    # in the backward sweep (diff/path_replay.py)
+    remat_bounces: bool = False
 
     def validate(self) -> "RenderConfig":
         """Raise ValueError on invalid values."""
@@ -76,7 +84,7 @@ class RenderConfig:
             errs.append(f"rng {self.rng!r} invalid")
         if self.roulette not in ("off", "terminate", "v4_quirk"):
             errs.append(f"roulette {self.roulette!r} invalid")
-        if self.backend not in ("torch", "cuda"):
+        if self.backend not in BACKENDS:
             errs.append(f"backend {self.backend!r} invalid")
         if errs:
             raise ValueError("invalid RenderConfig: " + "; ".join(errs))
@@ -92,7 +100,7 @@ class RenderConfig:
         backend that is not one of the port's ("xla", "pallas")."""
         names = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in d.items() if k in names}
-        if kw.get("backend") not in (None, "torch", "cuda"):
+        if kw.get("backend") not in (None, *BACKENDS):
             del kw["backend"]
         if "ambient" in kw:
             kw["ambient"] = tuple(kw["ambient"])
@@ -101,7 +109,8 @@ class RenderConfig:
 
 def resolve_device(backend: str, device=None) -> torch.device:
     """The device a backend runs on: ``"cuda"`` needs a CUDA GPU (it never
-    falls back to the CPU); ``"torch"`` takes ``device``, the CPU if None."""
+    falls back to the CPU); ``"torch"`` and ``"oracle"`` take ``device``,
+    the CPU if None."""
     if backend == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("backend 'cuda' needs a CUDA GPU; none is "

@@ -10,6 +10,9 @@ Two families, as ``cpuperformanceraytracer_tpu.core.rng``:
 u32 arithmetic runs in int64 tensors masked with ``& 0xFFFFFFFF``:
 torch on the CPU has no u32 add or shift, and a 32x32-bit product fits
 in int64. A draw converts the low 31 bits to f32 and scales by 2^-31.
+
+A frame index is an int or a ``DeviceFrame`` (an int the device reads,
+plus an offset); ``frame_key`` gives either as the RNGs take it.
 """
 
 from __future__ import annotations
@@ -112,3 +115,20 @@ class CounterRng(NamedTuple):
     def next01(self) -> Tuple[torch.Tensor, "CounterRng"]:
         v = counter_rand01(self.key0, self.key1, self.ctr, 0)
         return v, CounterRng(self.key0, self.key1, self.ctr + 1)
+
+
+class DeviceFrame(NamedTuple):
+    """The frame index ``base[0] + offset``, read on the device: ``base``
+    is a (1,) int32 tensor, ``offset`` an int. A CUDA graph bakes the
+    offset in and replays with the frame the host wrote into ``base``."""
+
+    base: torch.Tensor
+    offset: int
+
+
+def frame_key(frame):
+    """The frame as the RNGs take it: an int, or for a ``DeviceFrame`` a
+    (1,) int64 tensor (no read on the host)."""
+    if isinstance(frame, DeviceFrame):
+        return frame.base.to(torch.int64) + frame.offset
+    return int(frame)

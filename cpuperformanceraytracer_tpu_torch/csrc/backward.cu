@@ -370,7 +370,7 @@ struct Lane {
 // ``cot`` holds its six output cotangents (d r, d g, d b, d mt xyz).
 CPRT_FN void start_pixel(Lane& L, const Params& P, const float* cam, int col, int row,
                          const float* cot, Stack st) {
-    counter_keys(L.rng, col, (P.height - 1) - row, P.frame, P.sample0);
+    counter_keys(L.rng, col, (P.height - 1) - row, frame_of(P), P.sample0);
     f3 pos0, dir0;
     camera_ray(L.rng, P, cam, (float)col, (float)((P.height - 1) - row), pos0, dir0, L.target);
     L.ctr0 = L.rng.ctr;
@@ -650,17 +650,19 @@ extern "C" int cprt_bwd_tables_blocks(int nq, int ns, int nm, int bounces, int w
 // 8. ``lane_stats`` is null or two zeroed u64 (lanes that ran a step, lane
 // slots of all warp-iterations); ``clocks`` is null or six zeroed u64 that
 // receive the clock64 cycles lane 0 of every warp spent refilling, in
-// segment(), finishing steps, summing and writing the rows, and in all.
+// segment(), finishing steps, summing and writing the rows, and in all;
+// ``frame_base`` is null, or a device int added to ``frame``.
 extern "C" int cprt_bwd_tables(const float* quad_tbl, int nq, const float* sph_tbl, int ns,
                                const float* mat_tbl, int nm, const float* cam_tbl,
                                const float* cot6, float* partials, int blocks, int width,
                                int height, int frame, int sample0, int bounces, int env_draws,
                                int env_none, int roulette, int zangle, int jitter,
                                float aspect, unsigned long long* lane_stats,
-                               unsigned long long* clocks, void* stream) {
+                               unsigned long long* clocks, const int* frame_base,
+                               void* stream) {
     Params P{width, height, frame, sample0, 1, bounces, nq, ns, nm,
              1, env_draws, env_none, roulette, zangle, jitter,
-             aspect, 1.0f};
+             aspect, 1.0f, frame_base};
     if (blocks <= 0) return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bytes(nq, ns, nm, bounces);
     const int err = (int)allow_smem(smem);

@@ -50,7 +50,15 @@ struct Params {
     int jitter;
     float aspect;     // height/width, rounded once from float64
     float inv_spp;
+    // null, or a device int added to ``frame``: a CUDA graph replays a
+    // launch with the frame the host set there (``fill_``) before the replay
+    const int* frame_base;
 };
+
+// The frame index the RNG is keyed with.
+CPRT_FN int frame_of(const Params& P) {
+    return P.frame_base != nullptr ? P.frame + *P.frame_base : P.frame;
+}
 
 struct f3 {
     float x, y, z;

@@ -58,7 +58,7 @@ __device__ __forceinline__ void start_sample(Path& p, Rng& rng, const Params& P,
                                              const float* cam, int s, int col, int fy_i,
                                              f3& pos0, f3& dir0) {
     if (rng.counter) {
-        rng.key1 = (uint32_t)P.frame * 26699u + (uint32_t)(s + P.sample0) * 40503u + 1u;
+        rng.key1 = (uint32_t)frame_of(P) * 26699u + (uint32_t)(s + P.sample0) * 40503u + 1u;
         rng.ctr = 0u;
         f3 target;
         camera_ray(rng, P, cam, (float)col, (float)fy_i, pos0, dir0, target);
@@ -145,7 +145,7 @@ render_planes_kernel(Params P, const float* __restrict__ quad_tbl,
             rng.key1 = 0u;
             if (!rng.counter) {
                 rng.state = ((uint32_t)col * 1973u + (uint32_t)fy_i * 9277u +
-                             (uint32_t)P.frame * 26699u) | 1u;
+                             (uint32_t)frame_of(P) * 26699u) | 1u;
                 // the jittered ray is drawn once per frame, shared by the spp loop
                 f3 target;
                 camera_ray(rng, P, cam, (float)col, (float)fy_i, pos0, dir0, target);
@@ -211,26 +211,28 @@ int resident_blocks(int nq, int ns, int nm, int* per_sm, int* sms) {
 
 // ``counter`` is one int of scratch the launch uses (zeroed here, on the
 // stream); ``lane_stats`` is null, or two zeroed u64 that receive the
-// lanes that ran a segment and the lane slots of all warp iterations.
+// lanes that ran a segment and the lane slots of all warp iterations;
+// ``frame_base`` is null, or a device int added to ``frame``. ``most_blocks``
+// is the resident grid (cprt_render_planes_resident), queried once by the
+// caller: no occupancy query runs here, so a CUDA graph captures the launch.
 extern "C" int cprt_render_planes(const float* quad_tbl, int nq, const float* sph_tbl, int ns,
                                   const float* mat_tbl, int nm, const float* cam_tbl,
                                   float* out, int width, int height, int frame, int sample0,
                                   int spp, int bounces, int counter_rng, int env_draws,
                                   int env_none, int roulette, int zangle, int jitter,
                                   float aspect, float inv_spp, int* counter,
-                                  unsigned long long* lane_stats, void* stream) {
+                                  unsigned long long* lane_stats, const int* frame_base,
+                                  int most_blocks, void* stream) {
     Params P{width, height, frame, sample0, spp, bounces, nq, ns, nm,
              counter_rng, env_draws, env_none, roulette, zangle, jitter,
-             aspect, inv_spp};
+             aspect, inv_spp, frame_base};
     const long long n = (long long)width * height;
     if (n <= 0) return (int)cudaSuccess;
-    int per_sm = 0, sms = 0;
-    int err = resident_blocks(nq, ns, nm, &per_sm, &sms);
-    if (err) return err;
+    if (most_blocks <= 0) return (int)cudaErrorInvalidValue;
     const long long needed = (n + THREADS - 1) / THREADS;
-    const int blocks = (int)(needed < (long long)per_sm * sms ? needed : (long long)per_sm * sms);
+    const int blocks = (int)(needed < most_blocks ? needed : most_blocks);
     const size_t smem = (size_t)scene_smem_floats(nq, ns, nm) * sizeof(float);
-    err = (int)cudaMemsetAsync(counter, 0, sizeof(int), (cudaStream_t)stream);
+    int err = (int)cudaMemsetAsync(counter, 0, sizeof(int), (cudaStream_t)stream);
     if (err) return err;
     render_planes_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
         P, quad_tbl, sph_tbl, mat_tbl, cam_tbl, out, counter, lane_stats);

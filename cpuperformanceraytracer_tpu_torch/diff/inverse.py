@@ -5,8 +5,9 @@ Counterpart of ``cpuperformanceraytracer_tpu.diff.inverse``: Adam over a
 parameter dict (``torch.optim.Adam``, which adds ``eps`` outside the
 square root of the bias-corrected second moment, as optax's ``adam``
 does); each step renders, takes the L2 pixel gradient and updates the
-parameters in place. The K-steps-per-dispatch fusion of the JAX version
-is a workaround for the TPU backend's dispatch cost and is not ported.
+parameters in place. ``make_train_step_k`` runs K steps in one dispatch,
+as the JAX ``lax.scan``: on the card one CUDA graph of the K steps and
+their Adam updates (``capturable=True``), on the CPU a loop.
 """
 
 from __future__ import annotations
@@ -16,7 +17,12 @@ from typing import Callable, Dict, List
 
 import torch
 
-from cpuperformanceraytracer_tpu_torch.diff.grad import image_loss, render_for_params
+from cpuperformanceraytracer_tpu_torch.diff.graph import StepGraph
+from cpuperformanceraytracer_tpu_torch.diff.grad import (
+    fixed_quad_table,
+    image_loss,
+    render_for_params,
+)
 
 
 @dataclasses.dataclass
@@ -31,19 +37,22 @@ class InverseProblem:
 def make_train_step(problem: InverseProblem, optimizer,
                     resample_frames: bool = False) -> Callable:
     """``(params, step) -> loss``: one optimizer step over ``params``, the
-    dict of leaf tensors ``optimizer`` updates in place.
+    dict of leaf tensors ``optimizer`` updates in place; ``step`` is an
+    int or a ``DeviceFrame``.
 
     resample_frames=False keeps one fixed sample set (frame 0): the loss
     is deterministic in the params and descent converges fast (the target
     must be rendered with the same cfg and frame). True draws a fresh
     sample set per step: unbiased stochastic gradients over path space.
+    The scene's quad table is derived once, here.
     """
+    quad_tbl = fixed_quad_table(problem.scene)
 
-    def train_step(params: Dict, step: int) -> torch.Tensor:
+    def train_step(params: Dict, step) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         img = render_for_params(params, problem.scene, problem.camera,
                                 problem.texture, problem.cfg,
-                                step if resample_frames else 0)
+                                step if resample_frames else 0, quad_tbl)
         loss = image_loss(img, problem.target)
         loss.backward()
         optimizer.step()
@@ -52,11 +61,61 @@ def make_train_step(problem: InverseProblem, optimizer,
     return train_step
 
 
+def make_train_step_k(problem: InverseProblem, optimizer, k: int,
+                      resample_frames: bool = False) -> Callable:
+    """``(params, step0) -> losses``: K optimizer steps (steps step0 ...
+    step0 + k - 1) in one dispatch; ``losses`` is a (k,) tensor.
+
+    On the CPU the K steps run in a loop. On the card the first call
+    captures them, with their updates, into one CUDA graph
+    (``diff/graph.StepGraph``), and every call replays it with ``step0``;
+    ``optimizer`` must be ``capturable`` and ``params`` the tensors it
+    updates. The capture's warm-up steps on a side stream are undone:
+    the parameters and the optimizer's state are put back as they were
+    before them."""
+    train_step = make_train_step(problem, optimizer, resample_frames)
+    graph = captured = None
+
+    def k_steps(params, frames):
+        return torch.stack([train_step(params, f) for f in frames])
+
+    def train_step_k(params: Dict, step0: int) -> torch.Tensor:
+        nonlocal graph, captured
+        device = next(iter(params.values())).device
+        if device.type != "cuda":
+            return k_steps(params, [int(step0) + i for i in range(k)])
+        if graph is None:
+            if not all(g.get("capturable") for g in optimizer.param_groups):
+                raise ValueError("make_train_step_k on the card needs a "
+                                 "capturable optimizer (capturable=True)")
+            saved = {p: (p.detach().clone(),
+                         {n: v.clone() for n, v in optimizer.state[p].items()})
+                     for p in params.values()}
+            graph = StepGraph(lambda frames: k_steps(params, frames), k,
+                              device)
+            with torch.no_grad():
+                for p, (value, kept) in saved.items():
+                    p.copy_(value)
+                    for n, v in optimizer.state[p].items():
+                        if n in kept:
+                            v.copy_(kept[n])
+                        else:  # a state the warm-up step created: fresh
+                            v.zero_()
+            captured = dict(params)
+        if any(v is not captured.get(n) for n, v in params.items()):
+            raise ValueError("make_train_step_k: params are not the tensors "
+                             "the graph was captured with")
+        return graph.replay(step0).clone()
+
+    return train_step_k
+
+
 def adam_inverse_render(problem: InverseProblem, init_params: Dict,
                         steps: int = 200, learning_rate: float = 0.01,
                         resample_frames: bool = False,
                         log_every: int = 0, logger=None,
-                        eps: float = 1e-8) -> tuple:
+                        eps: float = 1e-8,
+                        steps_per_dispatch: int = 0) -> tuple:
     """Run Adam; returns (final_params, losses).
 
     With ``log_every`` and a ``logger``, steps 0, log_every, 2 * log_every,
@@ -67,16 +126,46 @@ def adam_inverse_render(problem: InverseProblem, init_params: Dict,
     floor: ~1e-2 damps the tiny cross-talk gradients of barely observed
     parameters (geometry recovery); 1e-8 suits smooth, well-observed
     parameters such as albedo and emissive.
+
+    ``steps_per_dispatch``: K optimizer steps per dispatch
+    (``make_train_step_k``; a last chunk of fewer steps gets its own); 0
+    picks JAX's rule, the logging cadence when logging, else
+    min(steps, 16); 1 is the per-step loop. On the card Adam is
+    ``capturable`` whatever K is, so every K takes the same arithmetic.
     """
     params = {k: v.detach().clone().requires_grad_()
               for k, v in init_params.items()}
+    device = next(iter(params.values())).device
     optimizer = torch.optim.Adam(list(params.values()), lr=learning_rate,
-                                 eps=eps)
-    train_step = make_train_step(problem, optimizer, resample_frames)
+                                 eps=eps, capturable=device.type == "cuda")
+    k = steps_per_dispatch
+    if not k:
+        k = log_every if (log_every and logger) else min(steps, 16)
+    k = max(1, min(k, steps))
+
     losses: List[torch.Tensor] = []
-    for i in range(steps):
-        losses.append(train_step(params, i))
-        if log_every and logger and i % log_every == 0:
-            logger.info("inverse step %d loss %.6f", i, float(losses[-1]))
+    if k == 1:
+        train_step = make_train_step(problem, optimizer, resample_frames)
+        for i in range(steps):
+            losses.append(train_step(params, i))
+            if log_every and logger and i % log_every == 0:
+                logger.info("inverse step %d loss %.6f", i, float(losses[-1]))
+    else:
+        chunks = {}
+        done = 0
+        while done < steps:
+            todo = min(k, steps - done)
+            if todo not in chunks:
+                chunks[todo] = make_train_step_k(problem, optimizer, todo,
+                                                 resample_frames)
+            chunk = chunks[todo](params, done)
+            if log_every and logger:
+                # the boundary step inside this chunk, if any, with its loss
+                off = (-done) % log_every
+                if off < todo:
+                    logger.info("inverse step %d loss %.6f", done + off,
+                                float(chunk[off]))
+            losses.extend(chunk)
+            done += todo
     return ({k: v.detach() for k, v in params.items()},
             [float(x) for x in losses])

@@ -49,6 +49,7 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I,           # counter env_draws env_none roulette zangle jitter
         _F, _F,                           # aspect inv_spp
         _P, _P,                           # work counter (1 int32), lane stats (2 u64, nullable)
+        _P, _I,                           # frame base (1 int32, nullable), resident grid
         _P,                               # stream
     ],
     "cprt_render_planes_resident": [
@@ -69,6 +70,7 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,               # env_draws env_none roulette zangle jitter
         _F,                               # aspect
         _P, _P,                           # lane stats (2 u64), clocks (6 u64), nullable
+        _P,                               # frame base (1 int32, nullable)
         _P,                               # stream
     ],
     "cprt_bwd_tables_blocks": [

@@ -21,12 +21,19 @@ index) forward, and kernel D then kernel C backward. ``render_frame_diff``
 packs the tables with the differentiable ``pack_scene``/``pack_camera``,
 so autograd carries the table cotangents on to quad vertices, sphere
 centers, materials and the camera; spp > 1 runs one dispatch per sample.
+The frame is an int or a ``DeviceFrame``: a CUDA graph of K training
+steps (``diff/graph.py``) bakes each step's offset in,
+and kernels A and C add the frame the host wrote on the device.
 
 Not ported: ``derive_trained``, ``bake_base_tables``, ``_BakedTables``,
 ``_concretize``, ``_inflate``, ``_bwd_tiles``, ``_fit_bwd_height`` and
 ``_bwd_stack_bytes``. They are TPU compile-time specialisation and VMEM
 fitting: kernel C computes the cotangent of every table cell, and
-autograd keeps only what reaches a leaf that requires grad.
+autograd keeps only what reaches a leaf that requires grad. What JAX's
+baking saves per step, the port saves by deriving the quad table of an
+untrained scene once where the loss is built (``quad_tbl``, from
+``diff/grad.fixed_quad_table``) and by replaying K steps as one CUDA
+graph.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
     _ROULETTE,
     _aspect,
     _check_tables,
+    frame_args,
     pack_camera,
     pack_scene,
     render_planes,
@@ -70,7 +78,7 @@ def require_diff_env(cfg) -> None:
             "stochastic, the reference default, or nearest)")
 
 
-def bwd_tables_reference(tables, cfg, frame: int, sample0: int, cot6):
+def bwd_tables_reference(tables, cfg, frame, sample0: int, cot6):
     """Plain kernel C: autograd of the plain kernel A's output planes."""
     _require_counter(cfg)
     with torch.enable_grad():
@@ -95,9 +103,10 @@ def _grid_blocks(device_index: int, nq: int, ns: int, nm: int, bounces: int,
     return blocks.value
 
 
-def bwd_tables(tables, cfg, frame: int, sample0: int, cot6, lane_stats=None,
+def bwd_tables(tables, cfg, frame, sample0: int, cot6, lane_stats=None,
                clocks=None):
-    """Kernel C wrapper: ``(d_quad, d_sph, d_mat, d_cam)``.
+    """Kernel C wrapper: ``(d_quad, d_sph, d_mat, d_cam)``; ``frame`` is an
+    int or a ``DeviceFrame``.
 
     On the card, ``lane_stats`` (two zeroed int64) receives the lanes that
     ran a step and the lane slots of all warp-iterations, and ``clocks``
@@ -137,19 +146,22 @@ def bwd_tables(tables, cfg, frame: int, sample0: int, cot6, lane_stats=None,
     partials = torch.empty((blocks, sum(sizes)), dtype=torch.float32,
                            device=quad_tbl.device)
     env_draws = cfg.env_mode != "none" and cfg.env_sampling == "stochastic"
+    offset, base = frame_args(frame, quad_tbl.device)
     stream = torch.cuda.current_stream(quad_tbl.device).cuda_stream
     err = load_library().cprt_bwd_tables(
         quad_tbl.data_ptr(), quad_tbl.shape[0], sph_tbl.data_ptr(),
         sph_tbl.shape[0], mat_tbl.data_ptr(), mat_tbl.shape[0],
         cam_tbl.data_ptr(), cot6.data_ptr(), partials.data_ptr(), blocks, w,
-        h, int(frame), int(sample0), cfg.bounces, int(env_draws),
+        h, offset, int(sample0), cfg.bounces, int(env_draws),
         int(cfg.env_mode == "none"), _ROULETTE[cfg.roulette],
         int(cfg.unit_vector_sampler == "zangle"), int(cfg.jitter),
         ctypes.c_float(_aspect(cfg)),
         None if lane_stats is None else lane_stats.data_ptr(),
-        None if clocks is None else clocks.data_ptr(), stream)
+        None if clocks is None else clocks.data_ptr(), base, stream)
     check(err, "bwd_tables")
-    bwd_tables.launches += 1
+    # a launch, not a capture into a CUDA graph: its replays launch
+    if not torch.cuda.is_current_stream_capturing():
+        bwd_tables.launches += 1
     flat = torch.sum(partials, dim=0)  # a fixed shape: a fixed order
     return tuple(part.reshape(t.shape)
                  for part, t in zip(torch.split(flat, sizes), tables))
@@ -160,8 +172,10 @@ bwd_tables.launches = 0
 
 class DiffSample(torch.autograd.Function):
     """One differentiable sample: (quad, sph, mat, cam, tex_r, tex_g,
-    tex_b) -> colour (3, H, W). ``cfg`` has spp=1; ``frame`` and
-    ``sample0`` are ints; ``tex_shape`` is the texture's (width, height)."""
+    tex_b) -> colour (3, H, W). ``cfg`` has spp=1; ``frame`` is an int or a
+    ``DeviceFrame`` (kept in ``ctx``, so kernel C reads the frame kernel A
+    read), ``sample0`` an int; ``tex_shape`` is the texture's (width,
+    height)."""
 
     @staticmethod
     def forward(ctx, cfg, frame, sample0, tex_shape, quad, sph, mat, cam,
@@ -196,10 +210,12 @@ class DiffSample(torch.autograd.Function):
         return (None, None, None, None, *d_tables, *d_tex)
 
 
-def render_frame_diff(scene, camera, texture, cfg, frame: int,
-                      spp_offset: int = 0) -> torch.Tensor:
+def render_frame_diff(scene, camera, texture, cfg, frame,
+                      spp_offset: int = 0, quad_tbl=None) -> torch.Tensor:
     """Differentiable frame on the CUDA kernels: (3, H, W) colour, the
-    mean of ``cfg.spp`` samples starting at sample ``spp_offset``."""
+    mean of ``cfg.spp`` samples starting at sample ``spp_offset``; ``frame``
+    is an int or a ``DeviceFrame``; ``quad_tbl`` is the scene's quad table
+    when the caller derived it."""
     cfg = cfg.validate()
     if cfg.backend != "cuda":
         raise ValueError("render_frame_diff runs the CUDA kernels (backend "
@@ -207,7 +223,8 @@ def render_frame_diff(scene, camera, texture, cfg, frame: int,
     _require_counter(cfg)
     require_diff_env(cfg)
     device = resolve_device("cuda")
-    quad, sph, mat = (t.to(device).contiguous() for t in pack_scene(scene))
+    quad, sph, mat = (t.to(device).contiguous()
+                      for t in pack_scene(scene, quad_tbl))
     cam = pack_camera(camera, cfg).to(device).contiguous()
     if texture is not None and cfg.env_mode != "none":
         tex = tuple(t.to(device).contiguous() for t in texture[:3])
@@ -218,7 +235,7 @@ def render_frame_diff(scene, camera, texture, cfg, frame: int,
     one = cfg.replace(spp=1)
     acc = None
     for s in range(cfg.spp):
-        color = DiffSample.apply(one, int(frame), int(spp_offset) + s,
+        color = DiffSample.apply(one, frame, int(spp_offset) + s,
                                  tex_shape, quad, sph, mat, cam, *tex)
         acc = color if acc is None else acc + color
-    return acc * (1.0 / cfg.spp)
+    return acc if cfg.spp == 1 else acc * (1.0 / cfg.spp)

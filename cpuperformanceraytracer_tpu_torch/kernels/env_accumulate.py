@@ -115,7 +115,9 @@ def env_accumulate(planes, texture, cfg, accum, blend: float = 1.0,
         int(cfg.env_flip_xz),
         None if index_out is None else index_out.data_ptr(), stream)
     check(err, "env_accumulate")
-    env_accumulate.launches += 1
+    # a launch, not a capture into a CUDA graph: its replays launch
+    if not torch.cuda.is_current_stream_capturing():
+        env_accumulate.launches += 1
     return accum
 
 

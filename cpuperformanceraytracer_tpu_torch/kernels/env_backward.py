@@ -93,7 +93,9 @@ def env_backward(g, idx, mt, texture):
     check(lib.cprt_env_backward_sums(
         sorted_keys.data_ptr(), order.data_ptr(), recs.data_ptr(), m, n_tex,
         *(d.data_ptr() for d in d_tex), stream), "env_backward")
-    env_backward.launches += 1
+    # a launch, not a capture into a CUDA graph: its replays launch
+    if not torch.cuda.is_current_stream_capturing():
+        env_backward.launches += 1
     return cot_mt, d_tex
 
 

@@ -39,16 +39,27 @@ changes nothing: a path that ends frees its lane.
 ``render_planes`` is the wrapper: a CPU tensor takes the plain version,
 a CUDA tensor launches ``csrc/megakernel.cu`` (and counts the launch in
 ``render_planes.launches``); any other device raises.
+
+The frame index is an int, or a ``core.rng.DeviceFrame``: ``base[0] +
+offset`` with ``base`` a (1,) int32 tensor that the kernel reads on the
+device. A CUDA graph bakes the offset in and replays with the frame the
+host wrote into ``base`` (``diff/graph.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
-from cpuperformanceraytracer_tpu_torch.core.rng import CounterRng, WangRng
+from cpuperformanceraytracer_tpu_torch.core.rng import (
+    CounterRng,
+    DeviceFrame,
+    WangRng,
+    frame_key,
+)
 from cpuperformanceraytracer_tpu_torch.core.sampling import unit_vector_sampler
 from cpuperformanceraytracer_tpu_torch.core.vecmath import (
     Vec3,
@@ -76,28 +87,47 @@ MIN_RAY_PROBABILITY = 0.001
 _ROULETTE = {"off": 0, "terminate": 1, "v4_quirk": 2}
 
 
-def pack_scene(scene):
-    """Scene -> (quad_tbl, sph_tbl, mat_tbl) f32 on the scene's device."""
-    d = precompute_quads(scene.quads)
-    q = scene.quads
+def frame_args(frame, device) -> tuple:
+    """(offset, base pointer or None) of a frame for a kernel launch."""
+    if not isinstance(frame, DeviceFrame):
+        return int(frame), None
+    base = frame.base
+    if (base.shape != (1,) or base.dtype != torch.int32
+            or base.device != device):
+        raise ValueError(f"DeviceFrame base must be (1,) int32 on {device}, "
+                         f"got {tuple(base.shape)} {base.dtype} {base.device}")
+    return int(frame.offset), base.data_ptr()
 
-    def cat3(v):
-        return [v.x, v.y, v.z]
 
-    quad_tbl = torch.stack(
-        cat3(q.v0) + cat3(d.normal) + cat3(d.nxv01) + cat3(d.nxv12)
-        + cat3(d.nxv20) + cat3(d.nxv02) + cat3(d.nxv23) + cat3(d.nxv30)
+def _cat3(v):
+    return [v.x, v.y, v.z]
+
+
+def pack_quads(q) -> torch.Tensor:
+    """Quads -> (NQ, 25) quad table f32."""
+    d = precompute_quads(q)
+    return torch.stack(
+        _cat3(q.v0) + _cat3(d.normal) + _cat3(d.nxv01) + _cat3(d.nxv12)
+        + _cat3(d.nxv20) + _cat3(d.nxv02) + _cat3(d.nxv23) + _cat3(d.nxv30)
         + [q.material.to(torch.float32)], dim=-1)
+
+
+def pack_scene(scene, quad_tbl=None):
+    """Scene -> (quad_tbl, sph_tbl, mat_tbl) f32 on the scene's device.
+    A caller that packs the same quads every step passes their table,
+    derived once (``pack_quads``: some 130 small kernels)."""
+    if quad_tbl is None:
+        quad_tbl = pack_quads(scene.quads)
     s = scene.spheres
     sph_tbl = torch.stack(
-        cat3(s.center) + [s.radius, s.material.to(torch.float32)], dim=-1)
+        _cat3(s.center) + [s.radius, s.material.to(torch.float32)], dim=-1)
     m = scene.materials
     mat_tbl = torch.stack(
-        cat3(m.albedo) + cat3(m.emissive)
+        _cat3(m.albedo) + _cat3(m.emissive)
         + [m.specular_chance, m.specular_roughness]
-        + cat3(m.specular_color)
+        + _cat3(m.specular_color)
         + [m.ior, m.refraction_chance, m.refraction_roughness]
-        + cat3(m.refraction_color), dim=-1)
+        + _cat3(m.refraction_color), dim=-1)
     return quad_tbl, sph_tbl, mat_tbl
 
 
@@ -127,7 +157,7 @@ def _inv_spp(cfg) -> float:
     return float(np.float32(1.0 / cfg.spp))
 
 
-def render_planes_reference(tables, cfg, frame: int, sample0: int = 0,
+def render_planes_reference(tables, cfg, frame, sample0: int = 0,
                             live_segments=None, live_masks=None) -> torch.Tensor:
     """Plain-torch kernel A: the per-object blend chain of the TPU
     kernel, vectorised over all pixels, every segment run with dead
@@ -138,6 +168,7 @@ def render_planes_reference(tables, cfg, frame: int, sample0: int = 0,
     ``live_masks`` receives the (H, W) bool mask of those paths."""
     quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
     dev = quad_tbl.device
+    frame = frame_key(frame)
     h, w = cfg.height, cfg.width
     row = torch.arange(h, device=dev, dtype=torch.int64)[:, None].expand(h, w)
     col = torch.arange(w, device=dev, dtype=torch.int64)[None, :].expand(h, w)
@@ -355,9 +386,10 @@ def _check_tables(tables):
         raise ValueError(f"cam_tbl must be (8,), got {tuple(tables[3].shape)}")
 
 
-def render_planes(tables, cfg, frame: int, sample0: int = 0,
+def render_planes(tables, cfg, frame, sample0: int = 0,
                   out=None, lane_stats=None) -> torch.Tensor:
-    """Kernel A wrapper: (12, H, W) f32 planes for one frame, written into
+    """Kernel A wrapper: (12, H, W) f32 planes for one frame (an int or a
+    ``DeviceFrame``), written into
     ``out`` when given (a contiguous (12, H, W) f32 tensor, e.g. one
     sample's slot of a (spp, 12, H, W) buffer). ``lane_stats``, a zeroed
     (2,) int64 tensor on the card, receives the lanes that ran a bounce
@@ -385,36 +417,50 @@ def render_planes(tables, cfg, frame: int, sample0: int = 0,
                          f"{lane_stats.dtype} {lane_stats.device}, want (2,) "
                          "int64 on the tables' device")
     env_draws = cfg.env_mode != "none" and cfg.env_sampling == "stochastic"
+    offset, base = frame_args(frame, quad_tbl.device)
+    per_sm, sms = _resident(quad_tbl.device.index or 0, nq, ns, nm)
     # the persistent kernel's work counter, zeroed on the stream by the
-    # entry point before the launch
+    # entry point before the launch (a memset node in a CUDA graph)
     counter = torch.empty(1, dtype=torch.int32, device=quad_tbl.device)
     stream = torch.cuda.current_stream(quad_tbl.device).cuda_stream
     err = load_library().cprt_render_planes(
         quad_tbl.data_ptr(), nq, sph_tbl.data_ptr(), ns, mat_tbl.data_ptr(),
         nm, cam_tbl.data_ptr(), out.data_ptr(), cfg.width, cfg.height,
-        int(frame), int(sample0), cfg.spp, cfg.bounces,
+        offset, int(sample0), cfg.spp, cfg.bounces,
         int(cfg.rng == "counter"), int(env_draws),
         int(cfg.env_mode == "none"), _ROULETTE[cfg.roulette],
         int(cfg.unit_vector_sampler == "zangle"), int(cfg.jitter),
         ctypes.c_float(_aspect(cfg)), ctypes.c_float(_inv_spp(cfg)),
         counter.data_ptr(),
-        None if lane_stats is None else lane_stats.data_ptr(), stream)
+        None if lane_stats is None else lane_stats.data_ptr(), base,
+        per_sm * sms, stream)
     check(err, "render_planes")
-    render_planes.launches += 1
+    # a launch, not a capture into a CUDA graph: its replays launch
+    if not torch.cuda.is_current_stream_capturing():
+        render_planes.launches += 1
     return out
 
 
 render_planes.launches = 0
 
 
-def resident_blocks(tables) -> tuple:
-    """(blocks per SM, SMs): the persistent kernel A's grid on the current
-    card is their product (fewer blocks when the frame is smaller)."""
+@functools.lru_cache(maxsize=None)
+def _resident(device_index: int, nq: int, ns: int, nm: int) -> tuple:
+    """The occupancy query, once per card and table sizes (so a CUDA graph
+    capture of a later launch runs none)."""
     per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
-    check(load_library().cprt_render_planes_resident(
-        tables[0].shape[0], tables[1].shape[0], tables[2].shape[0],
-        ctypes.byref(per_sm), ctypes.byref(sms)), "resident_blocks")
+    with torch.cuda.device(device_index):
+        check(load_library().cprt_render_planes_resident(
+            nq, ns, nm, ctypes.byref(per_sm), ctypes.byref(sms)),
+            "resident_blocks")
     return per_sm.value, sms.value
+
+
+def resident_blocks(tables) -> tuple:
+    """(blocks per SM, SMs): the persistent kernel A's grid on the tables'
+    card is their product (fewer blocks when the frame is smaller)."""
+    return _resident(tables[0].device.index or 0, tables[0].shape[0],
+                     tables[1].shape[0], tables[2].shape[0])
 
 
 PLANE_NAMES = ("r", "g", "b", "md_x", "md_y", "md_z", "mt_x", "mt_y",

@@ -19,7 +19,11 @@ counterpart of the JAX step's donated buffer. Two routes:
   for bilinear when spp > 1; the port does not copy that).
 
 The sequential wang stream cannot split into per-sample launches, so
-spp > 1 with an env map needs the counter RNG, as in JAX.
+spp > 1 with an env map needs the counter RNG on both kernel routes, as
+in JAX. The third route, ``backend="oracle"``, renders the frame with
+the oracle integrator (``render/integrator.render_frame``, the JAX
+``"xla"`` route) and accumulates it; it takes every config, the wang RNG
+with spp > 1 and an env map included.
 
 Image convention: (H, W), row 0 = top; the fragCoord y of a row is
 H-1-row.
@@ -53,6 +57,10 @@ from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
 from cpuperformanceraytracer_tpu_torch.kernels.tonemap import (
     tonemap,
     tonemap_reference,
+)
+from cpuperformanceraytracer_tpu_torch.render.integrator import (
+    render_frame,
+    to_device,
 )
 
 
@@ -91,10 +99,22 @@ def make_frame_fn(cfg, scene, camera, device):
     """Build ``step(texture, frame, accum) -> accum``: one progressive
     frame of ``cfg.spp`` samples, accumulated into ``accum`` in place.
 
-    ``cfg.backend`` picks the kernels ("cuda") or their plain-torch
-    versions ("torch"); the scene is packed into the kernel tables on
-    ``device`` once, here."""
+    ``cfg.backend`` picks the kernels ("cuda"), their plain-torch
+    versions ("torch") or the oracle integrator ("oracle"); the scene is
+    packed into the kernel tables on ``device`` once, here (the oracle
+    takes the scene and camera as they are, moved to ``device``)."""
     cfg = cfg.validate()
+    if cfg.backend == "oracle":
+        scene, camera = to_device((scene, camera), device)
+
+        def step(texture, frame: int, accum: torch.Tensor) -> torch.Tensor:
+            color = render_frame(scene, camera, texture, cfg, frame)
+            blend = frame_blend(frame)
+            for c in range(3):
+                accum[c] += (color[c] - accum[c]) * blend
+            return accum
+
+        return step
     if cfg.spp > 1 and cfg.env_mode != "none" and cfg.rng != "counter":
         raise NotImplementedError(
             "spp > 1 with an env map needs rng='counter' (per-sample "

@@ -204,6 +204,15 @@ def env_tap_indices(tex: Texture, direction: Vec3, cfg, jr, jc):
     return torch.stack([idx] * 4, dim=-1)
 
 
+def env_draws_per_bounce(tex, cfg) -> int:
+    """RNG draws the env path consumes per bounce iteration (the stream
+    contract of ``render/integrator.py``): 2 for a stochastic lookup of a
+    texture, else 0."""
+    if cfg.env_mode == "none" or tex is None or cfg.env_sampling != "stochastic":
+        return 0
+    return 2
+
+
 def sample_environment_deferred(tex, direction: Vec3, cfg, jr, jc) -> Vec3:
     """Miss radiance of the deferred once-per-path env lookup, for every
     env_mode x env_sampling pair (jr, jc are read only by stochastic)."""

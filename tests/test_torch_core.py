@@ -186,7 +186,7 @@ class TestConfig:
 
         t, j = T(), J()
         shared = [f.name for f in dataclasses.fields(T) if f.name != "backend"]
-        assert len(shared) == 18
+        assert len(shared) == 19   # remat_bounces since the oracle's port
         for name in shared:
             assert getattr(t, name) == getattr(j, name), name
 

@@ -781,3 +781,108 @@ def test_kernels_c_and_d_capture_in_a_cuda_graph(cuda_device):
         assert torch.equal(a, b)
     for a, b in zip(d_tex, env_backward(g, idx, mt, tex)[1]):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "oracle"])
+def test_grad_step_k_graph_bit_equal_to_ungraphed(cuda_device, backend):
+    """K steps in one CUDA graph: grad_sum and losses equal K ungraphed
+    steps summed in the same order, bit for bit, and a second replay reads
+    the new frame0 from the device (the frame is not frozen)."""
+    from cpuperformanceraytracer_tpu_torch.diff.benchgrad import (
+        grad_steps,
+        bench_loss,
+        make_grad_step_k,
+    )
+
+    params, _, scene, cam, tex, cfg = _glass_step(cuda_device)
+    cfg = cfg.replace(backend=backend, remat_bounces=backend == "oracle")
+    loss_fn = bench_loss(cfg, scene, cam, tex)
+    step_k = make_grad_step_k(loss_fn, 3)
+    for frame0 in (5, 8):
+        got_sum, got_losses = step_k(params, frame0)
+        want_sum, want_losses = grad_steps(loss_fn, params,
+                                         [frame0 + i for i in range(3)])
+        torch.cuda.synchronize()
+        assert _bits_equal(got_losses, want_losses), (got_losses, want_losses)
+        for k in params:
+            assert _bits_equal(got_sum[k], want_sum[k]), k
+    assert len(set(got_losses.tolist())) == 3
+
+
+def test_wrappers_count_launches_not_captures(cuda_device):
+    """A wrapper counts the kernels it launches: the warm-up run before a
+    K-step graph's capture counts, the capture and the replays do not
+    (torch.profiler counts the replays' launches on the device)."""
+    from cpuperformanceraytracer_tpu_torch.diff.benchgrad import (
+        bench_loss,
+        make_grad_step_k,
+    )
+
+    params, _, scene, cam, tex, cfg = _glass_step(cuda_device)
+    loss_fn = bench_loss(cfg, scene, cam, tex)
+    kernels = (render_planes, env_accumulate, bwd_tables, env_backward)
+    before = [k.launches for k in kernels]
+    step_k = make_grad_step_k(loss_fn, 3)
+    for frame0 in (0, 3):
+        step_k(params, frame0)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [3, 3, 3, 3]
+
+
+def test_train_step_k_graph_bit_equal_to_ungraphed(cuda_device):
+    """K graphed Adam steps (capturable) leave the parameters and losses
+    bit-equal to K ungraphed capturable steps, over two replays; the tail
+    of adam_inverse_render takes a graph of its own."""
+    from cpuperformanceraytracer_tpu_torch.diff.inverse import (
+        InverseProblem,
+        adam_inverse_render,
+        make_train_step,
+        make_train_step_k,
+    )
+
+    params, target, scene, cam, tex, cfg = _glass_step(cuda_device)
+    problem = InverseProblem(scene, cam, tex, cfg, target)
+
+    def fresh():
+        p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        return p, torch.optim.Adam(list(p.values()), lr=0.01, capturable=True)
+
+    pg, opt_g = fresh()
+    pu, opt_u = fresh()
+    graphed = make_train_step_k(problem, opt_g, 3, resample_frames=True)
+    plain = make_train_step(problem, opt_u, resample_frames=True)
+    for step0 in (0, 3):
+        got = graphed(pg, step0)
+        want = torch.stack([plain(pu, step0 + i) for i in range(3)])
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want), (got, want)
+        for k in params:
+            assert _bits_equal(pg[k].detach(), pu[k].detach()), k
+    init = {"albedo": params["albedo"]}
+    a, la = adam_inverse_render(problem, init, steps=5, steps_per_dispatch=2,
+                                resample_frames=True)
+    b, lb = adam_inverse_render(problem, init, steps=5, steps_per_dispatch=1,
+                                resample_frames=True)
+    assert la == lb and _bits_equal(a["albedo"], b["albedo"])
+
+
+def test_oracle_on_the_card_matches_the_cpu(cuda_device):
+    """The oracle integrator on the card: the diffuse cornell box with an
+    env map at spp 2 and the wang RNG (the config the kernel routes
+    refuse) as on the CPU, rtol 1e-4 and atol 1e-5 (torch's CPU sqrt is an
+    ulp off on some inputs)."""
+    from cpuperformanceraytracer_tpu_torch.render.integrator import render_frame
+
+    cfg = RenderConfig(width=128, height=32, bounces=2, spp=2, rng="wang",
+                       scene="cornell_box", backend="oracle")
+    got = render_frame(*scene_by_name("cornell_box", device=cuda_device),
+                       texture_from_array(gradient_sky(64, 32), cuda_device),
+                       cfg, 3)
+    want = render_frame(*scene_by_name("cornell_box"),
+                        texture_from_array(gradient_sky(64, 32)), cfg, 3)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)

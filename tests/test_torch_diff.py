@@ -271,10 +271,12 @@ def test_adam_matches_optax(eps):
 def test_fwd_bwd_benchmark_tiny():
     scene, cam, tex, cfg = _port_beer(32, 8)
     r = fwd_bwd_benchmark(cfg.replace(bounces=1), scene, cam, tex, steps=2,
-                          warmup_steps=1, spans=2)
+                          steps_per_dispatch=1, warmup_calls=1, spans=2)
     assert set(r) == {"ms_per_step", "Mrays_per_s", "span_ms", "spread",
-                      "steps_timed", "loss", "grads_finite", "param_leaves"}
+                      "steps_per_dispatch", "steps_timed", "loss",
+                      "grads_finite", "param_leaves"}
     assert r["grads_finite"] and r["steps_timed"] == 2
+    assert r["steps_per_dispatch"] == 1
     assert r["ms_per_step"] > 0 and r["Mrays_per_s"] > 0
     assert len(r["span_ms"]) == 2 and r["spread"] >= 0.0
     assert r["param_leaves"] == ["albedo", "env_rgb", "sphere_centers"]
