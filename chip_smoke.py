@@ -127,7 +127,26 @@ Phases, one line each; any failure raises and the exit code is not 0:
    1e-4, atol 1e-5; path-replay gradients (diff/path_replay.py) against
    plain autograd through the oracle at 320x180, 8 bounces, bilinear env
    (which the kernel routes refuse), rtol 1e-4 and atol 1e-7, with the
-   peak memory and time of each.
+   peak memory and time of each;
+16. the parallel layer, the row windows, the native codec and the
+   profiler. Right after phase 5: ``make -C native`` and the native RGBE
+   decode and BMP encode equal to the numpy path; one forward frame under
+   ``utils/profiling.trace``, whose Chrome trace must name kernel A. Last:
+   kernels A and C on the lower 360 rows of the 720p frame (A bit-equal to
+   those rows of a whole launch, C bit-equal on two launches), each held
+   full on the window and on the whole frame; a world of 1 (no process
+   group) bit-equal to the unsharded kernel route; a gloo world of 2 ranks
+   on the one card (``parallel.mesh.spawn_world``): px = 2 forward frames
+   (wang and counter) bit-equal to the unsharded kernel route, px = 1 x
+   spp = 2 at spp 2 within 1e-5 absolute, a sharded training step (px =
+   2, counter) with its loss within 1e-5 relative and its gradients under
+   1e-5 relative L2 of the unsharded K = 1 step, two sharded steps
+   bit-equal, the f32 elements its collectives move equal to
+   ``parallel/budget``'s model, kernels A-D launched by the ranks (the
+   counts set to 0 just before), the sharded step's ms and its gradient
+   all-reduce's; then ``parallel.scaling.measure_scaling`` over worlds of
+   1 and 2 ranks at the forward workload (two ranks on one card share it:
+   their efficiency measures contention and gloo's host staging).
 
 Then one JSON line with each kernel's numbers (times, launches on the
 main paths, and the bound: the larger of its bytes over 3.35 TB/s and
@@ -245,19 +264,25 @@ def device_frame_ms(step, n: int, sleep_cycles: int = 200_000_000,
     clock by default) holds the stream while the host enqueues ``n``
     calls, so no call waits for the host (CUDA events). A window must
     hold fewer launches than the stream's launch queue, or the host
-    blocks until the sleep ends."""
+    blocks until the sleep ends. A window in which the stream drained
+    (the host was slower than the sleep) is measured again with a sleep
+    four times longer, up to twice."""
     total = 0.0
     for _ in range(windows):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        torch.cuda._sleep(sleep_cycles)
-        start.record()
-        for _ in range(n):
-            step()
-        end.record()
-        if start.query():
+        for sleep in (sleep_cycles, 4 * sleep_cycles, 16 * sleep_cycles):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            torch.cuda._sleep(sleep)
+            start.record()
+            for _ in range(n):
+                step()
+            end.record()
+            drained = start.query()
+            torch.cuda.synchronize()
+            if not drained:
+                break
+        else:
             raise AssertionError("the stream drained while work was enqueued")
-        torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / (n * windows)
 
@@ -1346,6 +1371,277 @@ def phase_oracle(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
                 plain_s=secs["plain"])
 
 
+SHARDED_STEPS = 5              # timed sharded training steps (phase 16)
+SCALING_FRAMES = 64            # timed frames a world (phase 16)
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sharded_rank(cfg, params, target, steps: int, device: str) -> dict:
+    """Phase 16: one rank of a gloo world of 2 on the one card (px = 2;
+    then px = 1 x spp = 2): the frames, two training steps, the launches
+    of kernels A-D over them, and the step's and the gradient
+    all-reduce's times."""
+    from cpuperformanceraytracer_tpu_torch.kernels.backward import bwd_tables
+    from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
+    from cpuperformanceraytracer_tpu_torch.kernels.env_backward import env_backward
+    from cpuperformanceraytracer_tpu_torch.kernels.megakernel import render_planes
+    from cpuperformanceraytracer_tpu_torch.parallel import shard
+    from cpuperformanceraytracer_tpu_torch.parallel.mesh import make_mesh
+    from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
+    from cpuperformanceraytracer_tpu_torch.texture.procedural import gradient_sky
+    from cpuperformanceraytracer_tpu_torch.texture.texture import texture_from_array
+
+    dev = torch.device(device)
+    scene, cam = scene_by_name(cfg.scene, device=dev)
+    tex = texture_from_array(gradient_sky(512, 256), dev)
+    kernels = (render_planes, env_accumulate, bwd_tables, env_backward)
+    for k in kernels:
+        k.launches = 0
+    mesh = make_mesh((2, 1), device=dev)
+    spp_mesh = make_mesh((1, 2), device=dev)
+    frames = {rng: shard.sharded_render_frame(scene, cam, tex,
+                                              cfg.replace(rng=rng), 3, mesh)
+              for rng in ("wang", "counter")}
+    frames["spp2"] = shard.sharded_render_frame(
+        scene, cam, tex, cfg.replace(rng="counter", spp=2), 3, spp_mesh)
+    tcfg = cfg.replace(rng="counter")
+    p = {k: v.to(dev) for k, v in params.items()}
+    tgt = target.to(dev)
+
+    def step():
+        return shard.sharded_loss_and_grad(p, tgt, scene, cam, tex, tcfg, 1,
+                                           mesh)
+
+    shard.comm_elements = 0
+    loss, grads = step()
+    elements = shard.comm_elements
+    loss2, grads2 = step()
+    sync(dev)
+    launches = {k.__name__: k.launches for k in kernels}
+    twice = bool(torch.equal(loss, loss2) and all(
+        bits_equal(grads[k], grads2[k]) for k in grads))
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    sync(dev)
+    ms_step = (time.perf_counter() - t0) / steps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        shard.allreduce_grads(grads, mesh)
+    sync(dev)
+    ms_allreduce = (time.perf_counter() - t0) / steps * 1e3
+    return dict(frames={k: v.cpu() for k, v in frames.items()},
+                loss=loss.cpu(), grads={k: g.cpu() for k, g in grads.items()},
+                bit_equal_twice=twice, elements=elements, launches=launches,
+                ms_step=ms_step, ms_grad_allreduce=ms_allreduce,
+                grad_elements=sum(g.numel() for g in grads.values()))
+
+
+def native_and_trace(dev, scene, cam, tex, cfg) -> None:
+    """Phase 16, first: the native codec (built here) against the numpy
+    path, and one forward frame under the profiler, whose trace names
+    kernel A."""
+    import os
+
+    from cpuperformanceraytracer_tpu_torch.io import image, native
+    from cpuperformanceraytracer_tpu_torch.render.driver import OfflineRenderer
+    from cpuperformanceraytracer_tpu_torch.texture import hdr
+    from cpuperformanceraytracer_tpu_torch.utils.profiling import TRACE_FILE, trace
+
+    subprocess.run(["make", "-C", str(native.LIB_PATH.parent)], check=True,
+                   capture_output=True, timeout=120)
+    native._TRIED = False
+    if native.get_lib() is None:
+        raise AssertionError("native/librgbe.so did not load")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "native")
+    rs = torch.Generator().manual_seed(7)
+    img = (torch.rand((9, 33, 3), generator=rs) * 4.0).numpy()
+    hdr.write_hdr(path + ".hdr", img)
+    if not (hdr.read_hdr_numpy(path + ".hdr")
+            == native.read_hdr_native(path + ".hdr")).all():
+        raise AssertionError("native HDR decode differs from the numpy path")
+    u8 = (torch.rand((11, 22, 3), generator=rs) * 255).to(torch.uint8).numpy()
+    image.write_bmp_numpy(path + "_numpy.bmp", u8)
+    if not native.write_bmp_native(path + ".bmp", u8) or open(
+            path + "_numpy.bmp", "rb").read() != open(path + ".bmp", "rb").read():
+        raise AssertionError("native BMP encode differs from the numpy path")
+    r = OfflineRenderer(cfg, texture=tex, scene=scene, camera=cam,
+                        device=dev, silent=True)
+    r.step()
+    with trace(os.path.join(OUT_DIR, "trace")) as d:
+        r.step()
+    with open(os.path.join(d, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    names = sorted({str(e.get("name"))[:48] for e in events
+                    if e.get("cat") == "kernel"})
+    if not any("render_planes_kernel" in n for n in names):
+        raise AssertionError("the profiler's trace does not name kernel A; "
+                             f"its kernels: {names}; {len(events)} events")
+
+
+def window_times(dev, scene, cam, cfg) -> dict:
+    """Phase 16: kernels A and C on the lower half of the frame's rows
+    (bit-equal to those rows of a whole launch; C twice), and each held
+    full on the window and on the whole frame."""
+    from cpuperformanceraytracer_tpu_torch.kernels.backward import bwd_tables
+    from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
+        pack_tables,
+        render_planes,
+    )
+    from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
+
+    h = cfg.height // 2
+    half = dict(row0=h, local_height=h)
+    tables = pack_tables(scene, cam, cfg, dev)
+    full_a = render_planes(tables, cfg, 0)
+    win_a = render_planes(tables, cfg, 0, **half)
+    ccfg = cfg.replace(rng="counter")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cot6 = torch.randn((6, cfg.height, cfg.width), device=dev, generator=gen)
+    cwin = cot6[:, h:].contiguous()
+    c1 = bwd_tables(tables, ccfg, 1, 0, cwin, **half)
+    c2 = bwd_tables(tables, ccfg, 1, 0, cwin, **half)
+    sync(dev)
+    if not torch.equal(win_a, full_a[:, h:]):
+        raise AssertionError("kernel A: the window differs from the whole "
+                             "frame's rows")
+    if not all(bits_equal(a, b) for a, b in zip(c1, c2)):
+        raise AssertionError("kernel C: two window launches differ")
+    return {"rows": h,
+            "A_full": device_ms(lambda: render_planes(tables, cfg, 0), 20, dev),
+            "A_window": device_ms(
+                lambda: render_planes(tables, cfg, 0, **half), 20, dev),
+            "C_full": device_ms(
+                lambda: bwd_tables(tables, ccfg, 1, 0, cot6), 20, dev),
+            "C_window": device_ms(
+                lambda: bwd_tables(tables, ccfg, 1, 0, cwin, **half), 20, dev)}
+
+
+def worlds(dev, scene, cam, tex, cfg) -> dict:
+    """Phase 16: a world of 1 (no process group), a gloo world of 2 ranks
+    on the one card against the unsharded kernel route, and the scaling
+    harness's worlds of 1 and 2."""
+    from cpuperformanceraytracer_tpu_torch.diff.benchgrad import default_bench_params
+    from cpuperformanceraytracer_tpu_torch.diff.grad import (
+        loss_and_grad,
+        render_for_params,
+    )
+    from cpuperformanceraytracer_tpu_torch.parallel import budget, shard
+    from cpuperformanceraytracer_tpu_torch.parallel.mesh import (
+        make_mesh,
+        spawn_world,
+    )
+    from cpuperformanceraytracer_tpu_torch.parallel.scaling import measure_scaling
+    from cpuperformanceraytracer_tpu_torch.render.frame import make_frame_fn
+
+    def unsharded(c):
+        return make_frame_fn(c, scene, cam, dev)(
+            tex, 3, torch.zeros((3, c.height, c.width), device=dev), 1.0)
+
+    secs, t_start = {}, time.perf_counter()
+    one = shard.sharded_render_frame(scene, cam, tex, cfg, 3,
+                                     make_mesh((1, 1), device=dev))
+    if not torch.equal(one, unsharded(cfg)):
+        raise AssertionError("a world of 1 differs from the unsharded frame")
+
+    tcfg = cfg.replace(rng="counter")
+    params = default_bench_params(scene, tex)
+    with torch.no_grad():
+        target = render_for_params({}, scene, cam, tex, tcfg, 0)
+    loss, grads = loss_and_grad(params, target, scene, cam, tex, tcfg, 1)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(SHARDED_STEPS):
+        loss_and_grad(params, target, scene, cam, tex, tcfg, 1)
+    sync(dev)
+    ms_unsharded = (time.perf_counter() - t0) / SHARDED_STEPS * 1e3
+    t0 = time.perf_counter()
+    secs["references"] = t0 - t_start
+    ranks = spawn_world(sharded_rank, 2, (
+        cfg, {k: v.cpu() for k, v in params.items()}, target.cpu(),
+        SHARDED_STEPS, dev.type), backend="gloo", timeout=300)
+    secs["world_of_2"] = time.perf_counter() - t0
+    want = {rng: unsharded(cfg.replace(rng=rng)).cpu()
+            for rng in ("wang", "counter")}
+    want_spp = unsharded(cfg.replace(rng="counter", spp=2)).cpu()
+    n_elements = budget.training_step_comm_elements(
+        cfg.height, cfg.width, 2, 1, [v.numel() for v in params.values()])
+    rel, spp_err = {}, 0.0
+    for i, rk in enumerate(ranks):
+        for rng in ("wang", "counter"):
+            if not torch.equal(rk["frames"][rng], want[rng]):
+                raise AssertionError(f"rank {i}: the px-sharded {rng} frame "
+                                     "differs from the unsharded one")
+        spp_err = max(spp_err, (rk["frames"]["spp2"] - want_spp).abs().max().item())
+        if spp_err > 1e-5:
+            raise AssertionError(f"rank {i}: px 1 x spp 2 off by {spp_err}")
+        if abs(rk["loss"].item() - loss.item()) > 1e-5 * abs(loss.item()):
+            raise AssertionError(f"rank {i}: loss {rk['loss'].item()} vs "
+                                 f"{loss.item()}")
+        for k, g in grads.items():
+            rel[k] = max(rel.get(k, 0.0), rel_l2(rk["grads"][k], g.cpu()))
+        if max(rel.values()) >= 1e-5:
+            raise AssertionError(f"rank {i}: gradients relative L2 {rel}")
+        if not rk["bit_equal_twice"]:
+            raise AssertionError(f"rank {i}: two sharded steps differ")
+        if rk["elements"] != n_elements:
+            raise AssertionError(f"rank {i}: {rk['elements']} elements "
+                                 f"all-reduced, the budget says {n_elements}")
+    launches = {k: sum(rk["launches"][k] for rk in ranks)
+                for k in ranks[0]["launches"]}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"sharded path launches {launches}")
+    t0 = time.perf_counter()
+    pts = measure_scaling(scene, cam, tex, cfg, device_counts=[1, 2],
+                          frames=SCALING_FRAMES, backend="gloo", timeout=300)
+    secs["scaling"] = time.perf_counter() - t0
+    return dict(seconds=secs, spp2_max_abs_err=spp_err, loss=ranks[0]["loss"].item(),
+                loss_unsharded=loss.item(), grads_rel_l2=rel,
+                comm_elements=n_elements,
+                ms_per_step=[rk["ms_step"] for rk in ranks],
+                ms_per_step_unsharded_k1=ms_unsharded,
+                ms_grad_allreduce=[rk["ms_grad_allreduce"] for rk in ranks],
+                grad_allreduce_bytes=4 * ranks[0]["grad_elements"],
+                launches=launches, scaling=[vars(p) for p in pts])
+
+
+def phase_parallel(dev, scene, cam, tex, cfg, gpu) -> dict:
+    """Phase 16: kernels A and C on a row window; the parallel layer. (Its
+    first part, the native codec and the profiler trace, runs after phase
+    5: in a process where phases 6-15 had run, a CPU + CUDA profile of a
+    frame recorded no kernel on the H100 machine.)"""
+    t0 = time.perf_counter()
+    win = window_times(dev, scene, cam, cfg)
+    t1 = time.perf_counter()
+    w = worlds(dev, scene, cam, tex, cfg)
+    secs = time.perf_counter() - t0
+    w["seconds"]["windows"] = t1 - t0
+    phase("parallel", f"held full, whole frame / {win['rows']}-row window: A "
+          f"{win['A_full']:.4f} / {win['A_window']:.4f} ms (window = the "
+          f"frame's rows), C {win['C_full']:.4f} / {win['C_window']:.4f} ms "
+          f"(window bit-equal twice); world of 1 bit-equal; gloo world of 2 "
+          f"on one card: frames wang + counter bit-equal, px 1 x spp 2 max "
+          f"abs err {w['spp2_max_abs_err']:.3g}, loss {w['loss']:.7g} vs "
+          f"{w['loss_unsharded']:.7g}, grads rel L2 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in w["grads_rel_l2"].items())
+          + f", two steps bit-equal, {w['comm_elements']} elements = budget; "
+          f"ms/step {[round(x, 4) for x in w['ms_per_step']]} (unsharded K=1 "
+          f"{w['ms_per_step_unsharded_k1']:.4f}); grad all-reduce "
+          f"{[round(x, 4) for x in w['ms_grad_allreduce']]} ms for "
+          f"{w['grad_allreduce_bytes']} B; launches {w['launches']}; scaling "
+          + ", ".join(f"{p['devices']}: {p['ms_per_frame']:.4f} ms/frame eff "
+                      f"{p['efficiency']:.3f}" for p in w["scaling"])
+          + f"; {secs:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in w["seconds"].items())
+          + f"); GPU {gpu}")
+    return dict(window_ms=win, world2=w, seconds=secs)
+
+
 def phase_held_times(dev, planes, idx, tex, cfg, accum) -> dict:
     """Phase 14, last: small kernels timed back to back and held full."""
     from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
@@ -1529,6 +1825,13 @@ def main() -> int:
           f"plain path {main_off:.5%} px off; device busy "
           f"{busy_ms:.4f} ms/frame, idle share {idle:.4f}; GPU {gpu}")
 
+    # ---- phase 16, first part: the native codec, a profiler trace --------
+    t0 = time.perf_counter()
+    native_and_trace(dev, scene, cam, tex, cfg)
+    phase("parallel", f"native codec = numpy path (make -C native); a "
+          f"profiler trace of one forward frame names kernel A "
+          f"({time.perf_counter() - t0:.1f} s)")
+
     # ---- phases 6-8 --------------------------------------------------------
     c = phase_kernel_c(dev, tables, cfg, builds[0].log)
     d = phase_kernel_d(dev, planes, gi, tex)
@@ -1549,6 +1852,9 @@ def main() -> int:
     # ---- phase 15: the oracle integrator ----------------------------------
     o = phase_oracle(dev, scene, cam, tex, cfg, gpu)
 
+    # ---- phase 16: the parallel layer, windows, native codec, trace -------
+    par = phase_parallel(dev, scene, cam, tex, cfg, gpu)
+
     # ---- the kernels' numbers ---------------------------------------------
     n_px = cfg.width * cfg.height
     tex_bytes = 3 * 4 * tex.width * tex.height
@@ -1565,7 +1871,11 @@ def main() -> int:
              ms=ms_a, plain_ms=plain_ms_a, bound=bound_a, library_ms=None,
              launches_by_path={"forward": launches["render_planes"],
                                "training": t["launches"]["render_planes"],
-                               "training_k1": t["launches_k1"]["render_planes"]},
+                               "training_k1": t["launches_k1"]["render_planes"],
+                               "sharded_2_ranks": par["world2"]["launches"]["render_planes"]},
+             window={"row0": 360, "local_height": 360,
+                     "held_ms": par["window_ms"]["A_window"],
+                     "full_held_ms": par["window_ms"]["A_full"]},
              live_segments=sum(live_a), lane_utilisation=util_a,
              lane_utilisation_one_thread_per_pixel=util_pixel,
              resident_blocks_per_sm=per_sm, ptxas=regs_a),
@@ -1576,20 +1886,26 @@ def main() -> int:
              ms=ms_b, plain_ms=plain_ms_b, bound=bound_b, library_ms=None,
              launches_by_path={"forward": launches["env_accumulate"],
                                "training": t["launches"]["env_accumulate"],
-                               "training_k1": t["launches_k1"]["env_accumulate"]}),
+                               "training_k1": t["launches_k1"]["env_accumulate"],
+                               "sharded_2_ranks": par["world2"]["launches"]["env_accumulate"]}),
         dict(name="bwd_tables",
              source="cpuperformanceraytracer_tpu_torch/csrc/backward.cu",
              replaces="cpuperformanceraytracer_tpu/kernels/backward.py:230",
              launches=t["launches"]["bwd_tables"],
              launches_by_path={"training": t["launches"]["bwd_tables"],
-                               "training_k1": t["launches_k1"]["bwd_tables"]},
+                               "training_k1": t["launches_k1"]["bwd_tables"],
+                               "sharded_2_ranks": par["world2"]["launches"]["bwd_tables"]},
+             window={"row0": 360, "local_height": 360,
+                     "held_ms": par["window_ms"]["C_window"],
+                     "full_held_ms": par["window_ms"]["C_full"]},
              **c),
         dict(name="env_backward",
              source="cpuperformanceraytracer_tpu_torch/csrc/env_backward.cu",
              replaces="cpuperformanceraytracer_tpu/diff/segsum.py:46",
              launches=t["launches"]["env_backward"],
              launches_by_path={"training": t["launches"]["env_backward"],
-                               "training_k1": t["launches_k1"]["env_backward"]},
+                               "training_k1": t["launches_k1"]["env_backward"],
+                               "sharded_2_ranks": par["world2"]["launches"]["env_backward"]},
              **d),
         dict(name="env_gather",
              source="cpuperformanceraytracer_tpu_torch/csrc/env_gather.cu",
@@ -1620,7 +1936,7 @@ def main() -> int:
                                     "warmup": WARMUP},
                       "training_path": t["summary"],
                       "textured_path": x["summary"],
-                      "oracle": o, "probes": probes}))
+                      "oracle": o, "probes": probes, "parallel": par}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

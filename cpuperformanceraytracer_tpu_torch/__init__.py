@@ -5,16 +5,19 @@ package keeps its module names where a reader looks for a counterpart
 and is tested against it on the same inputs. It imports torch and numpy
 and never jax.
 
-Layer map (the slices ported so far: the forward progressive frame, the
-fwd+bwd training step, and the textured multi-sample frame with the
-display path):
+Layer map (every module of the JAX package has its counterpart here,
+apart from the TPU workarounds ROADMAP.md lists as not to port):
 
     app/       CLI (``render``, ``watch``, ``bench``, ``bench-grad``,
                ``inverse``)
     config     RenderConfig + validation, resolve_device, BENCH_CONFIGS
     render/    frame step (kernel A -> kernel B; A -> E -> F for an env
-               map with spp > 1, bilinear or cubemap), display (kernel G),
-               OfflineRenderer (progress, checkpoint/resume)
+               map with spp > 1, bilinear or cubemap; the oracle
+               integrator), display (kernel G), OfflineRenderer
+               (progress, checkpoint/resume, ``mesh=``)
+    parallel/  mesh (a world of processes under torch.distributed),
+               pixel-row and sample sharding of the frame and of the
+               training step, the scaling harness, the comm budget
     diff/      apply_params + L2 loss and gradients, the timed fwd+bwd
                step, Adam inverse rendering
     kernels/   hand-written CUDA kernels + their plain-torch versions:
@@ -33,8 +36,11 @@ display path):
                procedural sky
     core/      Vec3 math, hash RNGs, samplers, color transforms
     io/        BMP/PNG writers, checkpoint/resume (the JAX package's
-               format), numpy conversion from the JAX package
-    utils/     timers, logging and progress, terminal live view
+               format), the native RGBE/BMP codec (native/librgbe.so),
+               numpy conversion from the JAX package
+    utils/     timers, logging and progress, terminal live view,
+               torch.profiler traces and throughput reports, ownership
+               overlays
 """
 
 from cpuperformanceraytracer_tpu_torch.config import (  # noqa: F401

@@ -22,6 +22,11 @@
 //      absorption, reflect, refract, the roughness lerps, safe_normalize,
 //      emissive and colour factor.
 //   3. after segment 0's adjoint, the camera adjoint.
+// A launch replays a window of pixel rows (Params::row0, local_height; the
+// whole image is row0 = 0, local_height = height), as the TPU kernel under
+// shard_map (backward.py:350-353): its pixels are the window's, cot6 holds
+// the window's rows, and each pixel keys its RNG and casts its camera ray
+// from its global row, as kernel A's window does.
 // start_pixel, step_segment and step_finish are plain C++ apart from their
 // qualifiers, so the host compiler runs the same sequence of steps
 // (tests/test_torch_backward.py).
@@ -366,7 +371,8 @@ struct Lane {
     f3 target;    // the camera ray's direction before normalisation
 };
 
-// Cast the camera ray of pixel (col, row) and push segment 0's state;
+// Cast the camera ray of pixel (col, row), ``row`` the global row of the
+// height-row image, and push segment 0's state;
 // ``cot`` holds its six output cotangents (d r, d g, d b, d mt xyz).
 CPRT_FN void start_pixel(Lane& L, const Params& P, const float* cam, int col, int row,
                          const float* cot, Stack st) {
@@ -493,7 +499,7 @@ bwd_tables_kernel(Params P, const float* __restrict__ quad_tbl,
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     float* row = rows + warp * C.n;
     const Stack st{rows + WARPS * C.n + threadIdx.x, THREADS};
-    const int n = P.width * P.height;
+    const int n = P.width * P.local_height;  // the window's pixels
     const size_t sn = (size_t)n;
     const int n_warps = gridDim.x * WARPS;
 
@@ -548,10 +554,10 @@ bwd_tables_kernel(Params P, const float* __restrict__ quad_tbl,
         Seg s;
         if (busy) {
             if (fresh) {
-                const int r = item / P.width;
+                const int r = item / P.width;  // of the window
                 float cot[6];
                 for (int k = 0; k < 6; ++k) cot[k] = cot6[k * sn + item];
-                start_pixel(L, P, S.cam, item - r * P.width, r, cot, st);
+                start_pixel(L, P, S.cam, item - r * P.width, P.row0 + r, cot, st);
             }
             step_segment(L, P, S.quads, S.sph, S.inv_r, S.mats, S.cam, st, q, s);
         }
@@ -651,19 +657,23 @@ extern "C" int cprt_bwd_tables_blocks(int nq, int ns, int nm, int bounces, int w
 // slots of all warp-iterations); ``clocks`` is null or six zeroed u64 that
 // receive the clock64 cycles lane 0 of every warp spent refilling, in
 // segment(), finishing steps, summing and writing the rows, and in all;
-// ``frame_base`` is null, or a device int added to ``frame``.
+// ``frame_base`` is null, or a device int added to ``frame``. The launch
+// replays global rows [row0, row0 + local_height) of the height-row image;
+// ``cot6`` is (6, local_height, width).
 extern "C" int cprt_bwd_tables(const float* quad_tbl, int nq, const float* sph_tbl, int ns,
                                const float* mat_tbl, int nm, const float* cam_tbl,
                                const float* cot6, float* partials, int blocks, int width,
-                               int height, int frame, int sample0, int bounces, int env_draws,
+                               int height, int row0, int local_height, int frame,
+                               int sample0, int bounces, int env_draws,
                                int env_none, int roulette, int zangle, int jitter,
                                float aspect, unsigned long long* lane_stats,
                                unsigned long long* clocks, const int* frame_base,
                                void* stream) {
     Params P{width, height, frame, sample0, 1, bounces, nq, ns, nm,
              1, env_draws, env_none, roulette, zangle, jitter,
-             aspect, 1.0f, frame_base};
-    if (blocks <= 0) return (int)cudaErrorInvalidValue;
+             aspect, 1.0f, frame_base, row0, local_height};
+    if (blocks <= 0 || row0 < 0 || local_height < 0 || row0 + local_height > height)
+        return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bytes(nq, ns, nm, bounces);
     const int err = (int)allow_smem(smem);
     if (err) return err;

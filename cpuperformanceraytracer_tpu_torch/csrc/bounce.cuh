@@ -53,6 +53,10 @@ struct Params {
     // null, or a device int added to ``frame``: a CUDA graph replays a
     // launch with the frame the host set there (``fill_``) before the replay
     const int* frame_base;
+    // the pixel-row window a launch renders: global rows [row0, row0 +
+    // local_height) of the height-row image. The RNG keys and the camera
+    // ray take the global row; the outputs are the window's rows.
+    int row0, local_height;
 };
 
 // The frame index the RNG is keyed with.

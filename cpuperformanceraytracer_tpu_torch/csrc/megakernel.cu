@@ -31,6 +31,13 @@
 // after bounces+1 segments. A wang sample before the last that dies
 // still consumes the draws of its remaining segments, in one skip.
 //
+// A launch renders a window of pixel rows (Params::row0, local_height;
+// the whole image is row0 = 0, local_height = height), the counterpart of
+// the TPU kernel's row0 scalar under shard_map (parallel/shard.py): its
+// items are the window's pixels, and each pixel seeds its RNG and casts
+// its camera ray from its global row, so a window's planes are bit-equal
+// to those rows of the whole image.
+//
 // The bounce body lives in bounce.cuh, shared with kernel C (backward.cu),
 // whose replay must take exactly this kernel's decisions. Parity policy
 // (there): --fmad=false, no fast math, the JAX operand order.
@@ -88,7 +95,7 @@ render_planes_kernel(Params P, const float* __restrict__ quad_tbl,
     __syncthreads();
 
     const int lane = threadIdx.x & 31;
-    const int n = P.width * P.height;
+    const int n = P.width * P.local_height;  // the window's items
     const size_t sn = (size_t)n;
     const int n_draws = segment_draws(P);
 
@@ -135,9 +142,9 @@ render_planes_kernel(Params P, const float* __restrict__ quad_tbl,
         if (!busy) continue;
 
         if (fresh) {
-            const int row = item / P.width;
+            const int row = item / P.width;  // of the window
             col = item - row * P.width;
-            fy_i = (P.height - 1) - row;
+            fy_i = (P.height - 1) - (P.row0 + row);
             rng.counter = P.counter_rng != 0;
             rng.state = 0u;
             rng.ctr = 0u;
@@ -212,12 +219,15 @@ int resident_blocks(int nq, int ns, int nm, int* per_sm, int* sms) {
 // ``counter`` is one int of scratch the launch uses (zeroed here, on the
 // stream); ``lane_stats`` is null, or two zeroed u64 that receive the
 // lanes that ran a segment and the lane slots of all warp iterations;
-// ``frame_base`` is null, or a device int added to ``frame``. ``most_blocks``
+// ``frame_base`` is null, or a device int added to ``frame``. The launch
+// renders global rows [row0, row0 + local_height) of the height-row image
+// into ``out`` (12, local_height, width). ``most_blocks``
 // is the resident grid (cprt_render_planes_resident), queried once by the
 // caller: no occupancy query runs here, so a CUDA graph captures the launch.
 extern "C" int cprt_render_planes(const float* quad_tbl, int nq, const float* sph_tbl, int ns,
                                   const float* mat_tbl, int nm, const float* cam_tbl,
-                                  float* out, int width, int height, int frame, int sample0,
+                                  float* out, int width, int height, int row0,
+                                  int local_height, int frame, int sample0,
                                   int spp, int bounces, int counter_rng, int env_draws,
                                   int env_none, int roulette, int zangle, int jitter,
                                   float aspect, float inv_spp, int* counter,
@@ -225,8 +235,10 @@ extern "C" int cprt_render_planes(const float* quad_tbl, int nq, const float* sp
                                   int most_blocks, void* stream) {
     Params P{width, height, frame, sample0, spp, bounces, nq, ns, nm,
              counter_rng, env_draws, env_none, roulette, zangle, jitter,
-             aspect, inv_spp, frame_base};
-    const long long n = (long long)width * height;
+             aspect, inv_spp, frame_base, row0, local_height};
+    if (row0 < 0 || local_height < 0 || row0 + local_height > height)
+        return (int)cudaErrorInvalidValue;
+    const long long n = (long long)width * local_height;
     if (n <= 0) return (int)cudaSuccess;
     if (most_blocks <= 0) return (int)cudaErrorInvalidValue;
     const long long needed = (n + THREADS - 1) / THREADS;

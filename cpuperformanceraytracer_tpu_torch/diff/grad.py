@@ -93,9 +93,11 @@ def apply_params(scene: Scene, texture: Optional[Texture], params: Dict):
 
 
 def render_frame_plain(scene, camera, texture, cfg, frame,
-                       spp_offset: int = 0, quad_tbl=None) -> torch.Tensor:
-    """The plain versions under autograd: (3, H, W) colour; ``quad_tbl``
-    is the scene's quad table when the caller derived it."""
+                       spp_offset: int = 0, quad_tbl=None, row0: int = 0,
+                       local_height=None) -> torch.Tensor:
+    """The plain versions under autograd: (3, local_height, W) colour of
+    global rows [row0, row0 + local_height) (the whole image by default);
+    ``quad_tbl`` is the scene's quad table when the caller derived it."""
     if cfg.rng != "counter":
         raise ValueError("the diff path requires rng='counter'")
     require_diff_env(cfg)
@@ -103,7 +105,8 @@ def render_frame_plain(scene, camera, texture, cfg, frame,
     one = cfg.replace(spp=1)
     acc = None
     for s in range(cfg.spp):
-        planes = render_planes_reference(tables, one, frame, spp_offset + s)
+        planes = render_planes_reference(tables, one, frame, spp_offset + s,
+                                         row0=row0, local_height=local_height)
         color, _ = env_color_reference(planes, texture, one)
         acc = color if acc is None else acc + color
     return acc * (1.0 / cfg.spp)
@@ -118,20 +121,29 @@ def fixed_quad_table(scene: Scene) -> torch.Tensor:
 
 
 def render_for_params(params: Dict, scene: Scene, camera, texture, cfg,
-                      frame=0, quad_tbl=None) -> torch.Tensor:
+                      frame=0, quad_tbl=None, spp_offset: int = 0,
+                      row0: int = 0, local_height=None) -> torch.Tensor:
     """(3, H, W) colour of ``scene`` and ``texture`` with ``params``
     applied; ``quad_tbl`` is ``fixed_quad_table(scene)`` when the caller
-    keeps one (the kernel routes)."""
+    keeps one (the kernel routes). On the kernel routes ``spp_offset``,
+    ``row0`` and ``local_height`` pick the samples and the pixel-row
+    window (``cfg.spp`` samples from ``spp_offset``; (3, local_height, W)
+    colour), as the JAX ``render_frame_pallas_diff``'s sharding hooks;
+    the oracle renders the whole image."""
     if any(name.startswith("quad_") for name in params):
         quad_tbl = None
     scene, texture = apply_params(scene, texture, params)
+    win = dict(spp_offset=spp_offset, quad_tbl=quad_tbl, row0=row0,
+               local_height=local_height)
     if cfg.backend == "cuda":
-        return render_frame_diff(scene, camera, texture, cfg, frame,
-                                 quad_tbl=quad_tbl)
+        return render_frame_diff(scene, camera, texture, cfg, frame, **win)
     if cfg.backend == "oracle":
+        if spp_offset or row0 or local_height not in (None, cfg.height):
+            raise ValueError("the oracle renders the whole image from sample "
+                             "0 (no row window or sample offset)")
         return render_frame(scene, camera, texture, cfg.validate(), frame)
     return render_frame_plain(scene, camera, texture, cfg.validate(), frame,
-                              quad_tbl=quad_tbl)
+                              **win)
 
 
 def image_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

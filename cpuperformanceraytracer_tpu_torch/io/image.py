@@ -1,9 +1,10 @@
 """Own BMP and PNG writers (no external image deps).
 
 Replaces the reference's stb_image_write usage (WriteImage,
-asset_loading.cpp:48-54 — BMP via stbi_write_bmp). A numpy-only copy
-of ``cpuperformanceraytracer_tpu.io.image`` without its optional native
-BMP writer.
+asset_loading.cpp:48-54 — BMP via stbi_write_bmp). A copy of
+``cpuperformanceraytracer_tpu.io.image``: ``write_bmp`` takes the native
+encoder of ``io/native.py`` when ``native/librgbe.so`` is built, as the
+JAX writer does, and the numpy encoder (``write_bmp_numpy``) otherwise.
 """
 
 from __future__ import annotations
@@ -21,6 +22,14 @@ def write_bmp(path: str, rgb: np.ndarray) -> None:
     (output_image.bmp): bottom-up rows, BGR channel order, rows padded
     to 4 bytes.
     """
+    from cpuperformanceraytracer_tpu_torch.io.native import write_bmp_native
+
+    if not write_bmp_native(path, rgb):
+        write_bmp_numpy(path, rgb)
+
+
+def write_bmp_numpy(path: str, rgb: np.ndarray) -> None:
+    """``write_bmp``'s numpy encoder."""
     rgb = np.asarray(rgb, np.uint8)
     h, w, _ = rgb.shape
     bgr = rgb[::-1, :, ::-1]  # bottom-up, BGR

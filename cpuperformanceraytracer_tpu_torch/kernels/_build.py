@@ -44,8 +44,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "cprt_render_planes": [
         _P, _I, _P, _I, _P, _I, _P,      # tables and their row counts
-        _P,                               # out (12, H, W)
-        _I, _I, _I, _I, _I, _I,           # width height frame sample0 spp bounces
+        _P,                               # out (12, local_height, W)
+        _I, _I, _I, _I,                   # width height row0 local_height
+        _I, _I, _I, _I,                   # frame sample0 spp bounces
         _I, _I, _I, _I, _I, _I,           # counter env_draws env_none roulette zangle jitter
         _F, _F,                           # aspect inv_spp
         _P, _P,                           # work counter (1 int32), lane stats (2 u64, nullable)
@@ -65,8 +66,9 @@ _SIGNATURES = {
     ],
     "cprt_bwd_tables": [
         _P, _I, _P, _I, _P, _I, _P,      # tables and their row counts
-        _P, _P, _I,                       # cot6 (6, H, W), partials (blocks, cells), blocks
-        _I, _I, _I, _I, _I,               # width height frame sample0 bounces
+        _P, _P, _I,                       # cot6 (6, local_height, W), partials, blocks
+        _I, _I, _I, _I,                   # width height row0 local_height
+        _I, _I, _I,                       # frame sample0 bounces
         _I, _I, _I, _I, _I,               # env_draws env_none roulette zangle jitter
         _F,                               # aspect
         _P, _P,                           # lane stats (2 u64), clocks (6 u64), nullable

@@ -24,6 +24,10 @@ centers, materials and the camera; spp > 1 runs one dispatch per sample.
 The frame is an int or a ``DeviceFrame``: a CUDA graph of K training
 steps (``diff/graph.py``) bakes each step's offset in,
 and kernels A and C add the frame the host wrote on the device.
+``row0``/``local_height`` pick a window of pixel rows, as kernel A's: C
+replays the window's pixels from their global rows, and B and D take
+the window's buffers as they are (the JAX adjoint's row window,
+``backward.py:350-353``; ``parallel/shard.py`` passes it).
 
 Not ported: ``derive_trained``, ``bake_base_tables``, ``_BakedTables``,
 ``_concretize``, ``_inflate``, ``_bwd_tiles``, ``_fit_bwd_height`` and
@@ -56,6 +60,7 @@ from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
     pack_scene,
     render_planes,
     render_planes_reference,
+    window,
 )
 from cpuperformanceraytracer_tpu_torch.texture.texture import Texture
 
@@ -78,12 +83,15 @@ def require_diff_env(cfg) -> None:
             "stochastic, the reference default, or nearest)")
 
 
-def bwd_tables_reference(tables, cfg, frame, sample0: int, cot6):
-    """Plain kernel C: autograd of the plain kernel A's output planes."""
+def bwd_tables_reference(tables, cfg, frame, sample0: int, cot6,
+                         row0: int = 0, local_height=None):
+    """Plain kernel C: autograd of the plain kernel A's output planes
+    (of the row window, as ``bwd_tables``)."""
     _require_counter(cfg)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in tables]
-        planes = render_planes_reference(leaves, cfg, frame, sample0)
+        planes = render_planes_reference(leaves, cfg, frame, sample0,
+                                         row0=row0, local_height=local_height)
         grads = torch.autograd.grad(planes[list(OUT_PLANES)], leaves, cot6,
                                     allow_unused=True)
     return tuple(torch.zeros_like(t) if g is None else g
@@ -104,9 +112,11 @@ def _grid_blocks(device_index: int, nq: int, ns: int, nm: int, bounces: int,
 
 
 def bwd_tables(tables, cfg, frame, sample0: int, cot6, lane_stats=None,
-               clocks=None):
+               clocks=None, row0: int = 0, local_height=None):
     """Kernel C wrapper: ``(d_quad, d_sph, d_mat, d_cam)``; ``frame`` is an
-    int or a ``DeviceFrame``.
+    int or a ``DeviceFrame``. ``cot6`` is (6, local_height, W): the
+    cotangents of global rows [row0, row0 + local_height) of the image
+    (all of it by default), which the launch replays.
 
     On the card, ``lane_stats`` (two zeroed int64) receives the lanes that
     ran a step and the lane slots of all warp-iterations, and ``clocks``
@@ -117,13 +127,15 @@ def bwd_tables(tables, cfg, frame, sample0: int, cot6, lane_stats=None,
     quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
     _require_counter(cfg)
     if quad_tbl.device.type == "cpu":
-        return bwd_tables_reference(tables, cfg, frame, sample0, cot6)
+        return bwd_tables_reference(tables, cfg, frame, sample0, cot6,
+                                    row0, local_height)
     if quad_tbl.device.type != "cuda":
         raise ValueError(f"bwd_tables: unsupported device {quad_tbl.device}")
     if cfg.spp != 1:
         raise ValueError("bwd_tables: one sample per dispatch (spp=1)")
     _check_tables(tables)
-    h, w = cfg.height, cfg.width
+    row0, h = window(cfg, row0, local_height)
+    w = cfg.width
     if (cot6.shape != (6, h, w) or cot6.dtype != torch.float32
             or not cot6.is_contiguous() or cot6.device != quad_tbl.device):
         raise ValueError(f"bwd_tables: cot6 must be contiguous f32 (6, {h}, "
@@ -152,7 +164,7 @@ def bwd_tables(tables, cfg, frame, sample0: int, cot6, lane_stats=None,
         quad_tbl.data_ptr(), quad_tbl.shape[0], sph_tbl.data_ptr(),
         sph_tbl.shape[0], mat_tbl.data_ptr(), mat_tbl.shape[0],
         cam_tbl.data_ptr(), cot6.data_ptr(), partials.data_ptr(), blocks, w,
-        h, offset, int(sample0), cfg.bounces, int(env_draws),
+        cfg.height, row0, h, offset, int(sample0), cfg.bounces, int(env_draws),
         int(cfg.env_mode == "none"), _ROULETTE[cfg.roulette],
         int(cfg.unit_vector_sampler == "zangle"), int(cfg.jitter),
         ctypes.c_float(_aspect(cfg)),
@@ -172,26 +184,32 @@ bwd_tables.launches = 0
 
 class DiffSample(torch.autograd.Function):
     """One differentiable sample: (quad, sph, mat, cam, tex_r, tex_g,
-    tex_b) -> colour (3, H, W). ``cfg`` has spp=1; ``frame`` is an int or a
+    tex_b) -> colour (3, local_height, W) of the row window ``rows`` =
+    (row0, local_height), the whole image when None. ``cfg`` has spp=1;
+    ``frame`` is an int or a
     ``DeviceFrame`` (kept in ``ctx``, so kernel C reads the frame kernel A
     read), ``sample0`` an int; ``tex_shape`` is the texture's (width,
-    height)."""
+    height). Kernels B and D take the window's buffers as they are (per
+    pixel and per run record), so only A and C see the window."""
 
     @staticmethod
     def forward(ctx, cfg, frame, sample0, tex_shape, quad, sph, mat, cam,
-                tex_r, tex_g, tex_b):
+                tex_r, tex_g, tex_b, rows=None):
         tables = (quad, sph, mat, cam)
-        planes = render_planes(tables, cfg, frame, sample0)
+        row0, h = rows = window(cfg, *(rows or (0, None)))
+        planes = render_planes(tables, cfg, frame, sample0, row0=row0,
+                               local_height=h)
         env = cfg.env_mode != "none"
         texture = Texture(tex_r, tex_g, tex_b, *tex_shape) if env else None
-        color = torch.zeros((3, cfg.height, cfg.width), dtype=torch.float32,
+        color = torch.zeros((3, h, cfg.width), dtype=torch.float32,
                             device=quad.device)
-        idx = (torch.empty((cfg.height, cfg.width), dtype=torch.int64,
+        idx = (torch.empty((h, cfg.width), dtype=torch.int64,
                            device=quad.device) if env else None)
-        env_accumulate(planes, texture, cfg, color, 1.0, index_out=idx)
+        env_accumulate(planes, texture, cfg.replace(height=h), color, 1.0,
+                       index_out=idx)
         ctx.save_for_backward(quad, sph, mat, cam, tex_r, tex_g, tex_b)
         ctx.cfg, ctx.frame, ctx.sample0, ctx.tex_shape = cfg, frame, sample0, tex_shape
-        ctx.idx, ctx.mt = idx, planes[6:9]
+        ctx.rows, ctx.idx, ctx.mt = rows, idx, planes[6:9]
         return color
 
     @staticmethod
@@ -206,16 +224,22 @@ class DiffSample(torch.autograd.Function):
             cot_mt, d_tex = torch.zeros_like(g), (None, None, None)
         cot6 = torch.cat([g, cot_mt])
         d_tables = bwd_tables((quad, sph, mat, cam), cfg, ctx.frame,
-                              ctx.sample0, cot6)
-        return (None, None, None, None, *d_tables, *d_tex)
+                              ctx.sample0, cot6, row0=ctx.rows[0],
+                              local_height=ctx.rows[1])
+        return (None, None, None, None, *d_tables, *d_tex, None)
 
 
 def render_frame_diff(scene, camera, texture, cfg, frame,
-                      spp_offset: int = 0, quad_tbl=None) -> torch.Tensor:
-    """Differentiable frame on the CUDA kernels: (3, H, W) colour, the
-    mean of ``cfg.spp`` samples starting at sample ``spp_offset``; ``frame``
-    is an int or a ``DeviceFrame``; ``quad_tbl`` is the scene's quad table
-    when the caller derived it."""
+                      spp_offset: int = 0, quad_tbl=None, row0: int = 0,
+                      local_height=None) -> torch.Tensor:
+    """Differentiable frame on the CUDA kernels: (3, local_height, W)
+    colour of global rows [row0, row0 + local_height) (the whole image by
+    default), the mean of ``cfg.spp`` samples starting at sample
+    ``spp_offset``; ``frame`` is an int or a ``DeviceFrame``; ``quad_tbl``
+    is the scene's quad table when the caller derived it. The window and
+    the sample offset are the sharding hooks of the JAX
+    ``render_frame_pallas_diff`` (``parallel/shard.py`` passes them)."""
+    rows = window(cfg, row0, local_height)
     cfg = cfg.validate()
     if cfg.backend != "cuda":
         raise ValueError("render_frame_diff runs the CUDA kernels (backend "
@@ -236,6 +260,6 @@ def render_frame_diff(scene, camera, texture, cfg, frame,
     acc = None
     for s in range(cfg.spp):
         color = DiffSample.apply(one, frame, int(spp_offset) + s,
-                                 tex_shape, quad, sph, mat, cam, *tex)
+                                 tex_shape, quad, sph, mat, cam, *tex, rows)
         acc = color if acc is None else acc + color
     return acc if cfg.spp == 1 else acc * (1.0 / cfg.spp)

@@ -20,6 +20,11 @@ of the same resolve.
 ``env_accumulate`` is the wrapper: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel (counted in
 ``env_accumulate.launches``); any other device raises.
+
+A pixel-row window of the frame (``parallel/shard.py``) needs nothing
+here: the kernel works pixel by pixel on planes kernel A has already
+keyed and cast by global row, so it takes a window's (12, h, W) planes
+with a config of height h.
 """
 
 from __future__ import annotations

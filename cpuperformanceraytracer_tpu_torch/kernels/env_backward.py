@@ -26,6 +26,10 @@ records in that order and writes the three planes.
 ``env_backward`` is the wrapper: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (counted in ``env_backward.launches``);
 any other device raises.
+
+A pixel-row window of the frame (``parallel/shard.py``) needs nothing
+here: the kernel works on its pixels' run records, whatever rows they
+are, so a window's (3, h, W) cotangents and indices go in as they are.
 """
 
 from __future__ import annotations

@@ -40,6 +40,13 @@ changes nothing: a path that ends frees its lane.
 a CUDA tensor launches ``csrc/megakernel.cu`` (and counts the launch in
 ``render_planes.launches``); any other device raises.
 
+A launch renders a window of pixel rows, ``row0`` and ``local_height``
+(the whole image by default): (12, local_height, W) planes of global
+rows [row0, row0 + local_height), each pixel keyed and cast from its
+global row, so a window is bit-equal to those rows of the whole image.
+This is the JAX kernel's ``row0``/``local_height`` under shard_map
+(``parallel/shard.py`` passes them; ``sample0`` is its ``spp_offset``).
+
 The frame index is an int, or a ``core.rng.DeviceFrame``: ``base[0] +
 offset`` with ``base`` a (1,) int32 tensor that the kernel reads on the
 device. A CUDA graph bakes the offset in and replays with the frame the
@@ -157,22 +164,39 @@ def _inv_spp(cfg) -> float:
     return float(np.float32(1.0 / cfg.spp))
 
 
+def window(cfg, row0: int = 0, local_height=None) -> tuple:
+    """(row0, local_height) of a pixel-row window of ``cfg``'s image,
+    checked; ``local_height`` None is the rest of the image."""
+    row0 = int(row0)
+    local_height = cfg.height - row0 if local_height is None else int(local_height)
+    if row0 < 0 or local_height < 0 or row0 + local_height > cfg.height:
+        raise ValueError(f"row window [{row0}, {row0 + local_height}) is not "
+                         f"inside the image's {cfg.height} rows")
+    return row0, local_height
+
+
 def render_planes_reference(tables, cfg, frame, sample0: int = 0,
-                            live_segments=None, live_masks=None) -> torch.Tensor:
+                            live_segments=None, live_masks=None, row0: int = 0,
+                            local_height=None) -> torch.Tensor:
     """Plain-torch kernel A: the per-object blend chain of the TPU
     kernel, vectorised over all pixels, every segment run with dead
     paths masked (the kernel's early exit does not change the output).
-    Returns (12, H, W) f32 on the tables' device. A list passed as
+    Returns (12, local_height, W) f32 on the tables' device: global rows
+    [row0, row0 + local_height) of the image (all of it by default),
+    each pixel keyed and cast from its global row. A list passed as
     ``live_segments`` receives the number of live paths at the start of
     each segment (the segments the kernel runs); one passed as
-    ``live_masks`` receives the (H, W) bool mask of those paths."""
+    ``live_masks`` receives the (local_height, W) bool mask of those
+    paths."""
     quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
     dev = quad_tbl.device
     frame = frame_key(frame)
-    h, w = cfg.height, cfg.width
-    row = torch.arange(h, device=dev, dtype=torch.int64)[:, None].expand(h, w)
+    row0, h = window(cfg, row0, local_height)
+    w = cfg.width
+    row = torch.arange(row0, row0 + h, device=dev,
+                       dtype=torch.int64)[:, None].expand(h, w)
     col = torch.arange(w, device=dev, dtype=torch.int64)[None, :].expand(h, w)
-    fy_i = (h - 1) - row
+    fy_i = (cfg.height - 1) - row
     frag_x = col.to(torch.float32)
     frag_y = fy_i.to(torch.float32)
     zeros = torch.zeros((h, w), dtype=torch.float32, device=dev)
@@ -327,7 +351,7 @@ def render_planes_reference(tables, cfg, frame, sample0: int = 0,
         # tensor divisors: on CUDA torch divides by a Python scalar as a
         # multiply by its reciprocal, which is not the kernel's division
         u = (fx / torch.full_like(fx, float(w))) * 2.0 - 1.0
-        v = ((fy / torch.full_like(fy, float(h))) * 2.0 - 1.0) * aspect
+        v = ((fy / torch.full_like(fy, float(cfg.height))) * 2.0 - 1.0) * aspect
         pos = Vec3(zeros + cam_tbl[0], zeros + cam_tbl[1], zeros + cam_tbl[2])
         target = Vec3(u, v, zeros + cam_tbl[4] * cam_tbl[3])
         return pos, safe_normalize(target), rng
@@ -387,23 +411,27 @@ def _check_tables(tables):
 
 
 def render_planes(tables, cfg, frame, sample0: int = 0,
-                  out=None, lane_stats=None) -> torch.Tensor:
-    """Kernel A wrapper: (12, H, W) f32 planes for one frame (an int or a
-    ``DeviceFrame``), written into
-    ``out`` when given (a contiguous (12, H, W) f32 tensor, e.g. one
-    sample's slot of a (spp, 12, H, W) buffer). ``lane_stats``, a zeroed
+                  out=None, lane_stats=None, row0: int = 0,
+                  local_height=None) -> torch.Tensor:
+    """Kernel A wrapper: (12, local_height, W) f32 planes for one frame
+    (an int or a ``DeviceFrame``) of global rows [row0, row0 +
+    local_height) (the whole image by default), written into
+    ``out`` when given (a contiguous (12, local_height, W) f32 tensor,
+    e.g. one sample's slot of a (spp, 12, H, W) buffer). ``lane_stats``, a zeroed
     (2,) int64 tensor on the card, receives the lanes that ran a bounce
     segment and the lane slots of all the kernel's warp iterations (their
     ratio is its lane utilisation); the CPU path ignores it."""
     quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
     if quad_tbl.device.type == "cpu":
-        planes = render_planes_reference(tables, cfg, frame, sample0)
+        planes = render_planes_reference(tables, cfg, frame, sample0,
+                                         row0=row0, local_height=local_height)
         return planes if out is None else out.copy_(planes)
     if quad_tbl.device.type != "cuda":
         raise ValueError(f"render_planes: unsupported device {quad_tbl.device}")
     _check_tables(tables)
+    row0, local_height = window(cfg, row0, local_height)
     nq, ns, nm = quad_tbl.shape[0], sph_tbl.shape[0], mat_tbl.shape[0]
-    shape = (N_PLANES, cfg.height, cfg.width)
+    shape = (N_PLANES, local_height, cfg.width)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=quad_tbl.device)
     elif (out.shape != shape or out.dtype != torch.float32
@@ -426,7 +454,7 @@ def render_planes(tables, cfg, frame, sample0: int = 0,
     err = load_library().cprt_render_planes(
         quad_tbl.data_ptr(), nq, sph_tbl.data_ptr(), ns, mat_tbl.data_ptr(),
         nm, cam_tbl.data_ptr(), out.data_ptr(), cfg.width, cfg.height,
-        offset, int(sample0), cfg.spp, cfg.bounces,
+        row0, local_height, offset, int(sample0), cfg.spp, cfg.bounces,
         int(cfg.rng == "counter"), int(env_draws),
         int(cfg.env_mode == "none"), _ROULETTE[cfg.roulette],
         int(cfg.unit_vector_sampler == "zangle"), int(cfg.jitter),

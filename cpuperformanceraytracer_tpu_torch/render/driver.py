@@ -13,6 +13,16 @@ also synchronises on every ``checkpoint_every``-th frame and saves there
 
 ``backend="cuda"`` (the default) runs the CUDA kernels and needs a GPU:
 without one the constructor raises, it never falls back to the CPU.
+
+``mesh`` (a ``parallel.mesh.Mesh``) shards the frames over a world of
+processes, as the JAX ``OfflineRenderer``'s ``mesh=``: each rank
+renders and accumulates its own rows (``parallel/shard.make_rows_fn``),
+and the whole
+accumulator is assembled, by a collective every rank joins, only where
+it is read: ``accum``, ``image_u8``, ``write_image``, ``screenshot`` and
+a checkpoint save (rank 0 writes the files). The checkpoint keeps the
+JAX format. Every rank times its own spans, with one synchronisation of
+its device a span.
 """
 
 from __future__ import annotations
@@ -33,10 +43,9 @@ from cpuperformanceraytracer_tpu_torch.io.image import write_bmp, write_png
 from cpuperformanceraytracer_tpu_torch.render.frame import (
     make_frame_fn,
     postprocess_image,
-    zero_accum,
 )
 from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
-from cpuperformanceraytracer_tpu_torch.texture.texture import Texture
+from cpuperformanceraytracer_tpu_torch.texture.texture import Texture, texture_to
 from cpuperformanceraytracer_tpu_torch.utils.log import get_logger, progress
 from cpuperformanceraytracer_tpu_torch.utils.timing import FrameTimer
 
@@ -49,22 +58,59 @@ class OfflineRenderer:
     scene and camera) on one device."""
 
     def __init__(self, cfg, texture: Optional[Texture] = None, scene=None,
-                 camera=None, device=None, silent: bool = False):
+                 camera=None, device=None, silent: bool = False, mesh=None):
         self.cfg = cfg.validate()
         self.log = get_logger(silent=silent)
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(self.cfg.backend, device)
         if scene is None or camera is None:
             scene, camera = scene_by_name(self.cfg.scene, device=self.device)
         if self.cfg.env_mode != "none":
             if texture is None:
                 raise ValueError(f"env_mode {self.cfg.env_mode!r} needs a texture")
-            texture = Texture(*(t.to(self.device).contiguous()
-                                for t in texture[:3]),
-                              texture.width, texture.height)
+            texture = texture_to(texture, self.device)
         self.scene, self.camera, self.texture = scene, camera, texture
-        self.frame_fn = make_frame_fn(self.cfg, scene, camera, self.device)
-        self.accum = zero_accum(self.cfg, self.device)
+        if mesh is None:
+            self.rows = (0, self.cfg.height)
+            frame_fn = make_frame_fn(self.cfg, scene, camera, self.device)
+        else:
+            from cpuperformanceraytracer_tpu_torch.parallel.shard import (
+                make_rows_fn,
+                shard_window,
+            )
+
+            self.rows = shard_window(self.cfg, mesh)[:2]
+            frame_fn = make_rows_fn(self.cfg, mesh, scene, camera)
+        self.frame_fn = frame_fn
+        self.local = self._zero_rows()  # this rank's rows of the accumulator
         self.frame = 0
+
+    def _zero_rows(self) -> torch.Tensor:
+        return torch.zeros((3, self.rows[1], self.cfg.width),
+                           dtype=torch.float32, device=self.device)
+
+    @property
+    def accum(self) -> torch.Tensor:
+        """The whole (3, H, W) accumulator (under a mesh, assembled from
+        every rank's rows: a collective)."""
+        if self.mesh is None:
+            return self.local
+        from cpuperformanceraytracer_tpu_torch.parallel.shard import (
+            assemble_rows,
+        )
+
+        return assemble_rows(self.local, self.cfg, self.mesh)
+
+    @accum.setter
+    def accum(self, full: torch.Tensor) -> None:
+        row0, h = self.rows
+        self.local = full[:, row0:row0 + h].contiguous()
+
+    def _writes(self) -> bool:
+        """True on the rank that writes files (rank 0 under a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def resume(self, checkpoint_path: Optional[str]) -> None:
         """Continue from a checkpoint whose image fingerprint matches this
@@ -79,7 +125,7 @@ class OfflineRenderer:
 
     def step(self) -> None:
         """One progressive frame (the accumulator updates in place)."""
-        self.frame_fn(self.texture, self.frame, self.accum)
+        self.frame_fn(self.texture, self.frame, self.local)
         self.frame += 1
 
     def warmup(self) -> None:
@@ -87,12 +133,12 @@ class OfflineRenderer:
         image equals an unwarmed run's."""
         if self.cfg.warmup_frames <= 0:
             return
-        keep = (self.accum, self.frame)
-        self.accum, self.frame = zero_accum(self.cfg, self.device), 0
+        keep = (self.local, self.frame)
+        self.local, self.frame = self._zero_rows(), 0
         for _ in range(self.cfg.warmup_frames):
             self.step()
         self.sync()
-        self.accum, self.frame = keep
+        self.local, self.frame = keep
 
     def run(self, checkpoint_path: Optional[str] = None,
             checkpoint_every: int = 0) -> FrameTimer:
@@ -116,7 +162,9 @@ class OfflineRenderer:
             done += todo
             progress(self.log, done - 1, cfg.num_frames)
             if save_every and done % save_every == 0:
-                save_checkpoint(checkpoint_path, self.accum, self.frame, cfg)
+                accum = self.accum
+                if self._writes():
+                    save_checkpoint(checkpoint_path, accum, self.frame, cfg)
         rays = cfg.width * cfg.height * cfg.spp
         self.log.info("mean %.3f ms/frame, %.1f Mrays/s (primary)",
                       timer.mean_ms, timer.rays_per_second(rays) / 1e6)
@@ -128,6 +176,8 @@ class OfflineRenderer:
 
     def write_image(self, path: str) -> None:
         img = self.image_u8()
+        if not self._writes():
+            return
         if path.endswith(".png"):
             write_png(path, img)
         else:

@@ -53,6 +53,7 @@ from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
     pack_tables,
     render_planes,
     render_planes_reference,
+    window,
 )
 from cpuperformanceraytracer_tpu_torch.kernels.tonemap import (
     tonemap,
@@ -91,28 +92,46 @@ def uses_combine(cfg) -> bool:
         or cfg.env_sampling == "bilinear")
 
 
-def _render_plain(tables, cfg, frame, sample0=0, out=None):
-    return out.copy_(render_planes_reference(tables, cfg, frame, sample0))
+def _render_plain(tables, cfg, frame, sample0=0, out=None, **rows):
+    return out.copy_(render_planes_reference(tables, cfg, frame, sample0,
+                                             **rows))
 
 
-def make_frame_fn(cfg, scene, camera, device):
-    """Build ``step(texture, frame, accum) -> accum``: one progressive
-    frame of ``cfg.spp`` samples, accumulated into ``accum`` in place.
+def accumulate_frame(accum, color, blend: float) -> torch.Tensor:
+    """``accum += (color - accum) * blend`` in place, channel by channel
+    (the JAX ``accumulate_frame``; kernels B and F do the same in f32)."""
+    for c in range(3):
+        accum[c] += (color[c] - accum[c]) * blend
+    return accum
+
+
+def make_frame_fn(cfg, scene, camera, device, row0: int = 0,
+                  local_height=None, spp_offset: int = 0):
+    """Build ``step(texture, frame, accum, blend=None) -> accum``: one
+    progressive frame of ``cfg.spp`` samples, accumulated into ``accum``
+    in place with ``blend`` (``frame_blend(frame)`` by default; blend 1
+    into a zeroed buffer gives the frame's colour exactly).
 
     ``cfg.backend`` picks the kernels ("cuda"), their plain-torch
     versions ("torch") or the oracle integrator ("oracle"); the scene is
     packed into the kernel tables on ``device`` once, here (the oracle
-    takes the scene and camera as they are, moved to ``device``)."""
+    takes the scene and camera as they are, moved to ``device``).
+    ``row0``/``local_height`` pick a window of pixel rows (``accum`` is
+    then (3, local_height, W)) and ``spp_offset`` the first sample: the
+    sharding hooks of ``parallel/shard.py``, the whole image from sample
+    0 by default."""
     cfg = cfg.validate()
+    row0, h = window(cfg, row0, local_height)
+    rows = dict(row0=row0, local_height=h)
     if cfg.backend == "oracle":
         scene, camera = to_device((scene, camera), device)
 
-        def step(texture, frame: int, accum: torch.Tensor) -> torch.Tensor:
-            color = render_frame(scene, camera, texture, cfg, frame)
-            blend = frame_blend(frame)
-            for c in range(3):
-                accum[c] += (color[c] - accum[c]) * blend
-            return accum
+        def step(texture, frame: int, accum: torch.Tensor,
+                 blend=None) -> torch.Tensor:
+            color = render_frame(scene, camera, texture, cfg, frame,
+                                 spp_offset=spp_offset, **rows)
+            return accumulate_frame(
+                accum, color, frame_blend(frame) if blend is None else blend)
 
         return step
     if cfg.spp > 1 and cfg.env_mode != "none" and cfg.rng != "counter":
@@ -122,13 +141,18 @@ def make_frame_fn(cfg, scene, camera, device):
             "the sample loop")
     tables = pack_tables(scene, camera, cfg, device)
     cuda = cfg.backend == "cuda"
+    # kernels B, E and F work per pixel: they see the window as an image
+    # of its own rows
+    local = cfg.replace(height=h)
     if not uses_combine(cfg):
         render = render_planes if cuda else render_planes_reference
         resolve = env_accumulate if cuda else env_accumulate_reference
 
-        def step(texture, frame: int, accum: torch.Tensor) -> torch.Tensor:
-            planes = render(tables, cfg, frame)
-            return resolve(planes, texture, cfg, accum, frame_blend(frame))
+        def step(texture, frame: int, accum: torch.Tensor,
+                 blend=None) -> torch.Tensor:
+            planes = render(tables, cfg, frame, sample0=spp_offset, **rows)
+            return resolve(planes, texture, local, accum,
+                           frame_blend(frame) if blend is None else blend)
 
         return step
 
@@ -136,22 +160,23 @@ def make_frame_fn(cfg, scene, camera, device):
     lookup = env_lookup if cuda else env_lookup_reference
     combine = combine_accumulate if cuda else combine_accumulate_reference
     one = cfg.replace(spp=1)
-    spp, h, w = cfg.spp, cfg.height, cfg.width
+    spp, w = cfg.spp, cfg.width
     bufs = {}
 
-    def step(texture, frame: int, accum: torch.Tensor) -> torch.Tensor:
+    def step(texture, frame: int, accum: torch.Tensor,
+             blend=None) -> torch.Tensor:
         if not bufs:
             kw = dict(dtype=torch.float32, device=accum.device)
             bufs["planes"] = torch.empty((spp, N_PLANES, h, w), **kw)
             bufs["e4"] = torch.empty((spp, h * w, 4), **kw)
         planes, e4 = bufs["planes"], bufs["e4"]
         for s in range(spp):
-            render(tables, one, frame, sample0=s, out=planes[s])
-            lookup(planes[s], texture, cfg, out=e4[s])
+            render(tables, one, frame, sample0=spp_offset + s, out=planes[s],
+                   **rows)
+            lookup(planes[s], texture, local, out=e4[s])
+        blend = frame_blend(frame) if blend is None else blend
         if spp == 1:
-            return combine(e4[0], planes[0, 0:3], planes[0, 6:9], accum,
-                           frame_blend(frame))
-        return combine(e4, planes[:, 0:3], planes[:, 6:9], accum,
-                       frame_blend(frame))
+            return combine(e4[0], planes[0, 0:3], planes[0, 6:9], accum, blend)
+        return combine(e4, planes[:, 0:3], planes[:, 6:9], accum, blend)
 
     return step

@@ -371,18 +371,27 @@ def to_device(tree, device):
     return tree
 
 
-def frag_coords(cfg, device) -> tuple:
-    """Flat (P,) f32 fragCoords, row-major from the top-left pixel (the
-    fragCoord y of a row is H-1-row)."""
+def frag_coords(cfg, device, row0: int = 0, local_height=None) -> tuple:
+    """Flat (P,) f32 fragCoords of global rows [row0, row0 +
+    local_height) (all rows by default), row-major from the top-left
+    pixel (the fragCoord y of a row is H-1-row)."""
+    if local_height is None:
+        local_height = cfg.height - row0
     cols = torch.arange(cfg.width, dtype=torch.float32, device=device)
-    rows = torch.arange(cfg.height, dtype=torch.float32, device=device)
+    rows = torch.arange(row0, row0 + local_height, dtype=torch.float32,
+                        device=device)
     fy, fx = torch.meshgrid((cfg.height - 1) - rows, cols, indexing="ij")
     return fx.reshape(-1), fy.reshape(-1)
 
 
-def render_frame(scene: Scene, camera, texture, cfg, frame) -> torch.Tensor:
-    """One frame of ``cfg.spp`` samples for every pixel: (3, H, W) f32 on
-    the scene's device."""
-    fx, fy = frag_coords(cfg, scene.materials.ior.device)
-    color = render_pixel(scene, camera, texture, cfg, fx, fy, frame)
-    return torch.stack(list(color)).reshape(3, cfg.height, cfg.width)
+def render_frame(scene: Scene, camera, texture, cfg, frame, row0: int = 0,
+                 local_height=None, spp_offset: int = 0) -> torch.Tensor:
+    """One frame of ``cfg.spp`` samples from sample ``spp_offset`` for
+    every pixel of global rows [row0, row0 + local_height) (the whole
+    image by default): (3, local_height, W) f32 on the scene's device.
+    The window and the offset are the JAX sharded ``xla`` route's
+    (``parallel/shard.py``)."""
+    fx, fy = frag_coords(cfg, scene.materials.ior.device, row0, local_height)
+    color = render_pixel(scene, camera, texture, cfg, fx, fy, frame,
+                         spp_offset=spp_offset)
+    return torch.stack(list(color)).reshape(3, -1, cfg.width)

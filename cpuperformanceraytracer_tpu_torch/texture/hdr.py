@@ -6,9 +6,11 @@ new-style RLE and flat scanlines, mantissa*2^(e-136) decode (stb's
 rule), optional vertical flip (the reference always flips on load,
 asset_loading.cpp:12).
 
-Pure numpy, a copy of ``cpuperformanceraytracer_tpu.texture.hdr``
-without its optional native decoder (the JAX package's ``texture``
-package imports jax, so the port cannot import it from there).
+A copy of ``cpuperformanceraytracer_tpu.texture.hdr`` (the JAX
+package's ``texture`` package imports jax, so the port cannot import it
+from there): ``read_hdr`` takes the native decoder of ``io/native.py``
+when ``native/librgbe.so`` is built, as the JAX reader does, and the
+pure-numpy decoder (``read_hdr_numpy``) otherwise.
 """
 
 from __future__ import annotations
@@ -71,6 +73,16 @@ def read_hdr(path: str, flip_vertical: bool = True) -> np.ndarray:
     stbi_set_flip_vertically_on_load(true) (asset_loading.cpp:12): row 0
     of the returned array is the BOTTOM scanline of the file.
     """
+    from cpuperformanceraytracer_tpu_torch.io.native import read_hdr_native
+
+    native = read_hdr_native(path, flip_vertical)
+    if native is not None:
+        return native
+    return read_hdr_numpy(path, flip_vertical)
+
+
+def read_hdr_numpy(path: str, flip_vertical: bool = True) -> np.ndarray:
+    """``read_hdr``'s pure-numpy decoder."""
     with open(path, "rb") as f:
         raw = f.read()
 

@@ -51,6 +51,12 @@ def texture_from_array(rgb, device="cpu") -> Texture:
                    flat[:, 2].contiguous(), w, h)
 
 
+def texture_to(texture: Texture, device) -> Texture:
+    """The texture with contiguous planes on ``device``."""
+    return Texture(*(t.to(device).contiguous() for t in texture[:3]),
+                   texture.width, texture.height)
+
+
 def load_texture(path: str, device="cpu") -> Texture:
     """Radiance .hdr file, flipped vertically as the reference loads it."""
     return texture_from_array(read_hdr(path, flip_vertical=True), device)

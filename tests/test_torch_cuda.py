@@ -886,3 +886,95 @@ def test_oracle_on_the_card_matches_the_cpu(cuda_device):
     want = render_frame(*scene_by_name("cornell_box"),
                         texture_from_array(gradient_sky(64, 32)), cfg, 3)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("rng", ["wang", "counter"])
+@pytest.mark.parametrize("h,w,row0,rows", [(32, 128, 16, 16), (7, 45, 2, 4),
+                                           (24, 64, 0, 8), (24, 64, 23, 1)])
+def test_megakernel_window_bit_equal_to_rows(cuda_device, rng, h, w, row0,
+                                             rows):
+    """Kernel A on a row window: bit-equal to those rows of the whole
+    launch and to the plain version's window (global rows key the RNG and
+    cast the rays)."""
+    cfg = RenderConfig(width=w, height=h, bounces=3, spp=2,
+                       scene="cornell_box", env_mode="none", rng=rng)
+    tables = _tables("cornell_box", cfg, cuda_device)
+    full = render_planes(tables, cfg, 4, sample0=1)
+    got = render_planes(tables, cfg, 4, sample0=1, row0=row0,
+                        local_height=rows)
+    want = render_planes_reference(tables, cfg, 4, sample0=1, row0=row0,
+                                   local_height=rows)
+    torch.cuda.synchronize()
+    assert got.shape == (12, rows, w)
+    assert torch.equal(got, full[:, row0:row0 + rows])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["beer", "cornell"])
+def test_bwd_tables_window_bit_equal_twice_and_matches_plain(cuda_device,
+                                                              case):
+    """Kernel C on a row window: two launches give the same bits; both
+    match the plain version's window and the whole image's cotangents
+    with the other rows zeroed, under phase 6's tolerances."""
+    tables, cfg = _beer_or_cornell(case, 64, 256, cuda_device)
+    cot6 = _cot6(cfg, cuda_device, seed=5)[:, 20:52].contiguous()
+    first = bwd_tables(tables, cfg, 2, 0, cot6, row0=20, local_height=32)
+    second = bwd_tables(tables, cfg, 2, 0, cot6, row0=20, local_height=32)
+    want = bwd_tables_reference(tables, cfg, 2, 0, cot6, row0=20,
+                                local_height=32)
+    whole = torch.zeros((6, 64, 256), device=cuda_device)
+    whole[:, 20:52] = cot6
+    padded = bwd_tables(tables, cfg, 2, 0, whole)
+    torch.cuda.synchronize()
+    scale = max(w.abs().max().item() for w in want)
+    assert scale > 0.0
+    for a, b, w, p in zip(first, second, want, padded):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        torch.testing.assert_close(a, w, rtol=1e-3, atol=1e-3 * scale)
+        torch.testing.assert_close(a, p, rtol=1e-4, atol=1e-5 * scale)
+
+
+def _two_ranks_on_one_card(cfg, params, target):
+    """A rank of a gloo world of 2 sharing the card: the px-sharded frame
+    and training step (CPU copies of its results)."""
+    from cpuperformanceraytracer_tpu_torch.parallel import shard
+    from cpuperformanceraytracer_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda")
+    mesh = make_mesh((2, 1))
+    scene, cam = scene_by_name(cfg.scene, device=dev)
+    tex = texture_from_array(gradient_sky(64, 32), dev)
+    frame = shard.sharded_render_frame(scene, cam, tex, cfg, 3, mesh)
+    loss, grads = shard.sharded_loss_and_grad(
+        {k: v.to(dev) for k, v in params.items()}, target.to(dev), scene,
+        cam, tex, cfg, 3, mesh)
+    return frame.cpu(), loss.cpu(), {k: g.cpu() for k, g in grads.items()}
+
+
+def test_sharded_frame_and_step_on_two_ranks_of_one_card(cuda_device):
+    """Two gloo ranks on the one card (px = 2): the frame bit-equal to the
+    unsharded kernel route, the step's loss within 1e-5 relative and its
+    gradients within 1e-5 relative L2 of the unsharded step's."""
+    from cpuperformanceraytracer_tpu_torch.kernels._build import load_library
+    from cpuperformanceraytracer_tpu_torch.parallel.mesh import spawn_world
+    from cpuperformanceraytracer_tpu_torch.render.frame import make_frame_fn
+
+    load_library()  # built once, before the ranks start
+    cfg = RenderConfig(width=128, height=32, bounces=3, rng="counter",
+                       scene="glass_spheres")
+    scene, cam = scene_by_name(cfg.scene, device=cuda_device)
+    tex = texture_from_array(gradient_sky(64, 32), cuda_device)
+    want = make_frame_fn(cfg, scene, cam, cuda_device)(
+        tex, 3, torch.zeros((3, 32, 128), device=cuda_device), 1.0)
+    params = {k: v.cpu() for k, v in
+              default_bench_params(scene, tex).items()}
+    target = render_for_params({}, scene, cam, tex, cfg, 0).detach().cpu()
+    loss, grads = loss_and_grad({k: v.to(cuda_device) for k, v in params.items()},
+                                target.to(cuda_device), scene, cam, tex, cfg, 3)
+    for frame, l, g in spawn_world(_two_ranks_on_one_card, 2,
+                                   (cfg, params, target), timeout=300):
+        assert torch.equal(frame, want.cpu())
+        assert abs(l.item() - loss.item()) <= 1e-5 * abs(loss.item())
+        for k, v in grads.items():
+            v = v.cpu().double()
+            assert ((g[k].double() - v).norm() / v.norm()).item() < 1e-5, k
