@@ -106,14 +106,16 @@ Phases, one line each; any failure raises and the exit code is not 0:
 14. the probes (kernels K6-K8, built into their own library in phase 2):
    with the probe kernels' launch counts set to 0, the three probe entry
    points run as a user runs them (``probes.trace_probe``, ``probes.
-   gather_bench``, ``probes.overlap_probe``: P1 kernel A and the texel
-   gather on two streams, P2 serial row copies, P3 the cluster gather)
-   and every probe kernel must have launched; then each kernel against
-   its plain version on the card: K6 on the CUDA cores at rtol 1e-6 (the
-   same chains in the same order), on the tensor cores (3xTF32) under
-   1e-4 max relative error against the CUDA cores; K7 in all three
-   layouts, K8a (TMA and cp.async, 512- and 16-byte rows, 256 to 4096
-   copies) and K8b (2048 and 921600 queries) bit-equal; last, kernels B,
+   gather on two streams, P2 row copies with 1 to 8 in flight, P3 the
+   cluster gather) and every probe kernel must have launched; then each
+   kernel against its plain version on the card: K6 on the CUDA cores at
+   rtol 1e-6 (the same chains in the same order), on the tensor cores
+   (3xTF32) under 1e-4 max relative error against the CUDA cores; K7 in
+   all three layouts, K8a (TMA and cp.async, 512- and 16-byte rows, 256
+   to 4096 copies, 1, 2, 4 and 8 in flight) and K8b (0, 1, 3, 5, 2048
+   and 921600 queries and views one int32 off; two launches bit-equal)
+   bit-equal; K8a's in-flight bound n t1 /
+   depth from its depth-1 time in the same run; last, kernels B,
    D, E and G and ``index_add_`` at 720p timed both ways, back to back
    (as phases 4-12 time them) and with the stream held full (as the
    probes time theirs): where back to back is longer, the host's
@@ -1171,16 +1173,20 @@ def phase_probes(dev, gpu) -> tuple:
     if not all(g["correct"].values()):
         raise AssertionError(f"gather race: {g['correct']}")
 
-    # K8a: every mechanism, row and copy count bit-equal to the contract
+    # K8a: every mechanism, row, copy count and depth bit-equal to the
+    # contract; the in-flight bound n t1 / depth, t1 the depth-1 time per
+    # copy at the same mechanism, row and count in this run
     k8a = {}
-    for (mech, row_bytes, copies), ms in p2["ms"].items():
+    for (mech, row_bytes, copies, depth), ms in p2["ms"].items():
         table = p2["table"][:, :row_bytes // 4].contiguous()
         idx = p2["idx"][:copies]
-        out = overlap_probe.row_copy(table, idx, mech)
+        out = overlap_probe.row_copy(table, idx, mech, depth)
         if not torch.equal(out, overlap_probe.row_copy_reference(table, idx)):
-            raise AssertionError(f"K8a {mech} {row_bytes} B x {copies} differs")
-        k8a[f"{mech}_{row_bytes}B_{copies}"] = dict(
+            raise AssertionError(f"K8a {mech} {row_bytes} B x {copies} at depth "
+                                 f"{depth} differs")
+        k8a[(mech, row_bytes, copies, depth)] = dict(
             ms=ms, ns_per_copy=ms * 1e6 / copies,
+            inflight_bound_ms=p2["ms"][(mech, row_bytes, copies, 1)] / depth,
             bound=bound(copies * (4 + row_bytes) + out.numel() * 4, 0))
     table, idx = p2["table"], p2["idx"]
     last = idx[torch.arange(overlap_probe.SLOTS, device=dev)
@@ -1193,21 +1199,34 @@ def phase_probes(dev, gpu) -> tuple:
     if not all(p2["correct"].values()):
         raise AssertionError(f"P2: {p2['correct']}")
 
-    # K8b: both query counts bit-equal; the L2 gather (K7) beside
+    # K8b at 0, 1, 3, 5, 2048 and 921600 queries and on views one int32 off
+    # (together, and rows alone), bit-equal; two launches give the same
+    # bits; torch indexing and K7 (through L2) beside
     tbl = p3["table"]
-    k8b = {}
-    for key, (rows, cols) in (("2048", p3["small"]), ("921600", p3["big"])):
+    rows_b, cols_b = p3["big"]
+    cases = {str(q): (rows_b[:q], cols_b[:q]) for q in (0, 1, 3, 5)}
+    cases.update({"2048": p3["small"], "921600": p3["big"],
+                  "921599_off1": (rows_b[1:], cols_b[1:]),
+                  "921599_rows_off1": (rows_b[1:], cols_b[:-1])})
+    for key, (rows, cols) in cases.items():
         out = overlap_probe.dsmem_gather(tbl, rows, cols)
-        if not torch.equal(out, overlap_probe.dsmem_gather_reference(
-                tbl, rows, cols)):
+        if not torch.equal(out, overlap_probe.dsmem_gather_reference(tbl, rows, cols)):
             raise AssertionError(f"K8b at {key} queries differs")
-        r64, c64 = rows.long(), cols.long()
+    first = overlap_probe.dsmem_gather(tbl, rows_b, cols_b)
+    again = overlap_probe.dsmem_gather(tbl, rows_b, cols_b)
+    if not torch.equal(first.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("K8b: two launches differ")
+    k8b = {}
+    for key, (rows, cols), pkey in (("2048", p3["small"], "16x128"),
+                                    ("921600", p3["big"], "921600")):
         k8b[key] = dict(
-            ms=p3["ms"]["16x128" if key == "2048" else key],
+            ms=p3["ms"][pkey],
             plain_ms=dms(lambda: overlap_probe.dsmem_gather_reference(
                 tbl, rows, cols), 20),
-            library_ms=dms(lambda: tbl[r64, c64], 100),
+            library_ms=p3["ms"][f"index_{pkey}"],
             bound=bound(tbl.numel() * 4 + rows.numel() * 12, 0))
+    k8b["921600"]["l2_gather_k7_ms"] = p3["ms"]["l2_921600"]
+    k8b["921600"]["same_texel_ms"] = p3["ms"]["921600_same_texel"]
     if not all(p3["correct"].values()):
         raise AssertionError(f"P3: {p3['correct']}")
 
@@ -1218,11 +1237,14 @@ def phase_probes(dev, gpu) -> tuple:
           f"err vs cuda_core {tc_err:.3e}); K7 " + ", ".join(
               f"{k} {v['ms']:.4f} ms" for k, v in k7.items())
           + f" (plane[flat] {k7['planar_1']['library_ms']:.4f}, index_select "
-          f"(N,4) {k7['packed']['library_ms']:.4f}); K8a ns/copy at 4096: "
-          + ", ".join(f"{k.rsplit('_', 1)[0]} {v['ns_per_copy']:.1f}"
-                      for k, v in k8a.items() if k.endswith("_4096"))
+          f"(N,4) {k7['packed']['library_ms']:.4f}); K8a ns/copy at 4096, "
+          "depth 1 / 8: " + ", ".join(
+              f"{m} {b} B {k8a[(m, b, 4096, 1)]['ns_per_copy']:.1f} / "
+              f"{k8a[(m, b, 4096, 8)]['ns_per_copy']:.1f}"
+              for m in overlap_probe.MECHANISMS for b in (512, 16))
           + f"; K8b {k8b['2048']['ms']:.4f} ms at 2048 q, "
-          f"{k8b['921600']['ms']:.4f} at 921600 (L2 gather K7 "
+          f"{k8b['921600']['ms']:.4f} at 921600 (table[rows, cols] "
+          f"{k8b['921600']['library_ms']:.4f}, L2 gather K7 "
           f"{p3['ms']['l2_921600']:.4f}); P1 trivial {p1['ms']['trivial']:.4f}"
           f" | kernel A {p1['ms']['kernel']:.4f} | gather "
           f"{p1['ms']['gather']:.4f} | together {p1['ms']['together']:.4f} "
@@ -1233,7 +1255,9 @@ def phase_probes(dev, gpu) -> tuple:
                         bound_ms=row["bound"][0], bound_by=row["bound"][1])
                 for k, row in d.items()}
 
-    main_k8a = k8a["tma_512B_4096"]
+    main_k8a = k8a[("tma", 512, 4096, overlap_probe.SLOTS)]
+    k8a_rows = {f"{m}_{b}B_{c}_depth{d}": row for (m, b, c, d), row in k8a.items()
+                if d in (1, overlap_probe.SLOTS)}
     return [
         dict(name="trace_dots",
              source="cpuperformanceraytracer_tpu_torch/csrc/probes/trace_dots.cu",
@@ -1257,7 +1281,10 @@ def phase_probes(dev, gpu) -> tuple:
              replaces="scripts/overlap_probe.py:159",
              launches=launches["row_copy"], max_abs_err=0.0,
              ms=main_k8a["ms"], plain_ms=plain_k8a, bound=main_k8a["bound"],
-             library_ms=lib_k8a, launches_by_path={}, variants=variants(k8a)),
+             inflight_bound_ms=main_k8a["inflight_bound_ms"],
+             ms_depth1=k8a[("tma", 512, 4096, 1)]["ms"],
+             library_ms=lib_k8a, launches_by_path={},
+             variants=variants(k8a_rows)),
         dict(name="dsmem_gather",
              source="cpuperformanceraytracer_tpu_torch/csrc/probes/dsmem_gather.cu",
              replaces="scripts/overlap_probe.py:199",

@@ -1,5 +1,5 @@
-"""Compare kernels A, C, D and G of two or more checkouts of the port on
-one GPU.
+"""Compare kernels A, C, D and G, and the probe kernels K8a and K8b, of
+two or more checkouts of the port on one GPU.
 
     python -m cpuperformanceraytracer_tpu_torch.app.kernel_ab \\
         --trees build/parent . --out out/kernel_ab
@@ -8,7 +8,9 @@ Each run is a fresh process started from a tree's root (``PYTHONPATH``
 set to it), in the order A B B A for two trees (A B C C B A for three),
 repeated ``--pairs`` times, so that a drift of the machine during the
 call falls on every tree alike. Each tree builds its own kernels from its
-own sources. A run, through the API the trees share:
+own sources. A run, through the API the trees share, in two sections:
+
+kernels:
 
 - renders kernel A's 12 planes at three shapes and keeps them under
   ``--planes`` (1280x720 glass_spheres 8 bounces wang, frame 0; one
@@ -31,13 +33,23 @@ own sources. A run, through the API the trees share:
 - reports kernel A's lane utilisation where the tree's wrapper counts
   it, and the ptxas lines of the tree's kernels.
 
+probes (the overlap probe's P2 and P3 inputs, held full):
+
+- K8a, 4096 copies of 512- and 16-byte rows by TMA and by cp.async, at
+  the wrapper's default (serial in a tree without ``depth``, 8 in flight
+  with it) and, where the wrapper takes ``depth``, at depth 1;
+- K8b at 2048 and 921600 queries, and
+  ``table[rows, cols]`` beside it; the outputs kept under ``--planes``.
+
 Then every run's planes are compared with the first run's, bit for bit:
-the parity of the trees' kernel A (and the determinism of each); and
-every run's kernel C cotangents with the first run's, each table within
-2e-2 relative L2 (phase 6 of ``chip_smoke.py``: the trees may sum in
-other orders), and the bits that differ are counted. Prints
-one JSON line per run, a summary line per tree (mean, min, max) and a
-parity line; the lines also go to ``<out>/runs.jsonl``.
+the parity of the trees' kernel A (and the determinism of each); every
+run's kernel C cotangents with the first run's, each table within 2e-2
+relative L2 (phase 6 of ``chip_smoke.py``: the trees may sum in other
+orders), and the bits that differ are counted; every run's K8a and K8b
+outputs with the first run's, bit for bit (K8a at depth 1 with the first
+run's default where that tree has no depth). Prints one JSON line per
+run, a summary line per tree (mean, min, max) and a parity line; the
+lines also go to ``<out>/runs.jsonl``. Exit 1 where a comparison fails.
 """
 
 from __future__ import annotations
@@ -172,6 +184,45 @@ big = texture_from_array(gradient_sky(2048, 1024), dev)
 res["textured_ms_per_frame"] = OfflineRenderer(
     tex_cfg, texture=big, scene=scene, camera=cam, silent=True).run().mean_ms
 res["ptxas"] = ptxas
+
+# K8a and K8b at the overlap probe's own inputs (P2, P3), held full;
+# their outputs kept for the bit-for-bit comparison across runs
+import numpy as np
+from cpuperformanceraytracer_tpu_torch.probes import overlap_probe as op
+from cpuperformanceraytracer_tpu_torch.probes.gather_bench import bench_inputs
+probe_build = _build.build(_build.PROBES)
+res["probe_ptxas"] = [ln.strip() for ln in probe_build.log.splitlines()
+                      if "registers" in ln or "spill" in ln]
+has_depth = "depth" in inspect.signature(op.row_copy).parameters
+rng = np.random.default_rng(0)
+table = torch.from_numpy(rng.random((op.TABLE_ROWS, 128), dtype=np.float32)).to(dev)
+idx = torch.from_numpy(rng.integers(0, op.TABLE_ROWS, 4096, dtype=np.int32)).to(dev)
+outs = {}
+for row in (128, 4):
+    tbl = table if row == 128 else table[:, :row].contiguous()
+    for mech in ("tma", "cp_async"):
+        key = f"K8a_{mech}_{row * 4}B"
+        outs[key] = op.row_copy(tbl, idx, mech)
+        res[f"{key}_ms"] = device_ms(lambda: op.row_copy(tbl, idx, mech), 8, dev)
+        if has_depth:
+            outs[f"{key}_depth1"] = op.row_copy(tbl, idx, mech, 1)
+            res[f"{key}_depth1_ms"] = device_ms(
+                lambda: op.row_copy(tbl, idx, mech, 1), 8, dev)
+rng = np.random.default_rng(0)
+tab = torch.from_numpy(rng.random((op.TH, op.TW), dtype=np.float32)).to(dev)
+small = [torch.from_numpy(rng.integers(0, hi, (16, 128), dtype=np.int32)).to(dev)
+         for hi in (op.TH, op.TW)]
+_, rows_n, cols_n = bench_inputs(0)
+big = [torch.from_numpy(x).to(dev) for x in (rows_n, cols_n)]
+for q, (r, c) in (("2048", small), ("921600", big)):
+    outs[f"K8b_{q}"] = op.dsmem_gather(tab, r, c)
+    res[f"K8b_{q}_ms"] = device_ms(lambda: op.dsmem_gather(tab, r, c), 100, dev)
+    r64, c64 = r.long(), c.long()
+    res[f"index_{q}_ms"] = device_ms(lambda: tab[r64, c64], 100, dev)
+torch.cuda.synchronize()
+torch.save({k: v.cpu() for k, v in outs.items()},
+           os.path.join(planes_dir, f"{tag}_probes.pt"))
+
 res["gpu"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                              "--format=csv,noheader"], capture_output=True,
                             text=True, timeout=60).stdout.strip().splitlines()[0]
@@ -182,7 +233,10 @@ METRICS = ("A_720p_wang_ms", "A_720p_wang_held_ms", "A_1080p_counter_ms",
            "A_1080p_counter_held_ms", "C_held_ms", "C_lane_utilisation",
            "G_held_ms", "D_ms", "D_held_ms", "index_add_held_ms",
            "forward_ms_per_frame", "textured_ms_per_frame",
-           "A_720p_wang_lane_utilisation", "A_1080p_counter_lane_utilisation")
+           "A_720p_wang_lane_utilisation", "A_1080p_counter_lane_utilisation",
+           *(f"K8a_{m}_{b}B{d}_ms" for m in ("tma", "cp_async") for b in (512, 16)
+             for d in ("", "_depth1")),
+           "K8b_2048_ms", "K8b_921600_ms", "index_2048_ms", "index_921600_ms")
 SHAPES = ("720p_wang", "1080p_counter", "cornell_128x32_spp2_wang")
 
 
@@ -229,6 +283,21 @@ def kernel_c_agreement(planes_dir: str, tags: list) -> dict:
     return out
 
 
+def probe_parity(planes_dir: str, tags: list) -> dict:
+    """Per run: the K8a and K8b outputs whose bits differ from the first
+    run's, by key; a key the first run lacks (K8a at depth 1 where the
+    first tree has no depth) is held to the serial run of its mechanism
+    and row."""
+    ref = torch.load(os.path.join(planes_dir, f"{tags[0]}_probes.pt"))
+    out = {}
+    for tag in tags[1:]:
+        got = torch.load(os.path.join(planes_dir, f"{tag}_probes.pt"))
+        out[tag] = {k: int((v.view(torch.int32) != ref.get(
+            k, ref.get(k.removesuffix("_depth1"))).view(torch.int32)).sum())
+            for k, v in got.items()}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="kernel_ab")
     ap.add_argument("--trees", nargs="+", required=True)
@@ -262,19 +331,24 @@ def main(argv=None) -> int:
                 "max": max(r[k] for r in mine)}
             for k in METRICS if all(k in r for r in mine)}})
         print(json.dumps(summary[-1]), flush=True)
-    diff = parity(planes_dir, [r["tag"] for r in rows])
-    c_diff = kernel_c_agreement(planes_dir, [r["tag"] for r in rows])
+    tags = [r["tag"] for r in rows]
+    diff = parity(planes_dir, tags)
+    c_diff = kernel_c_agreement(planes_dir, tags)
+    p_diff = probe_parity(planes_dir, tags)
     line = {"parity_vs_run0": diff, "bit_equal": all(
         sum(v) == 0 for per in diff.values() for v in per.values()),
         "kernel_c_vs_run0": c_diff, "kernel_c_within_2e-2": all(
             max(v["rel_l2"]) < 2e-2 for v in c_diff.values()),
+        "probes_vs_run0": p_diff, "probes_bit_equal": all(
+            v == 0 for per in p_diff.values() for v in per.values()),
         "runs": {r["tag"]: r["tree"] for r in rows}}
     print(json.dumps(line), flush=True)
     if a.out:
         with open(os.path.join(a.out, "runs.jsonl"), "w") as f:
             for r in rows + summary + [line]:
                 f.write(json.dumps(r) + "\n")
-    return 0 if line["bit_equal"] and line["kernel_c_within_2e-2"] else 1
+    return 0 if (line["bit_equal"] and line["kernel_c_within_2e-2"]
+                 and line["probes_bit_equal"]) else 1
 
 
 if __name__ == "__main__":

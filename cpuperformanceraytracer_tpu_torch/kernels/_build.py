@@ -132,6 +132,7 @@ _PROBE_SIGNATURES = {
     "cprt_row_copy": [
         _P, _I, _I,                       # table, its rows, floats a row
         _P, _I, _P, _I,                   # idx (n,) int32, n, out (8, row), tma?
+        _I,                               # depth: copies in flight, 1..8
         _P,                               # stream
     ],
     "cprt_dsmem_gather": [

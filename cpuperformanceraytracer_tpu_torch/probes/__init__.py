@@ -8,8 +8,8 @@ the script's lines:
     gather_bench   scripts/gather_bench.py: a race of texel gathers (K7,
                    csrc/probes/texel_gather.cu, beside kernel E and torch)
     overlap_probe  scripts/overlap_probe.py: kernel A and the texel gather
-                   on two streams (P1), one serial async row copy (P2, K8a,
-                   csrc/probes/row_copy.cu), a gather from a table in a
+                   on two streams (P1), async row copies with 1 to 8 in
+                   flight (P2, K8a, csrc/probes/row_copy.cu), a gather from a table in a
                    cluster's shared memory (P3, K8b, csrc/probes/dsmem_gather.cu)
 
     python -m cpuperformanceraytracer_tpu_torch.probes.<name> [--backend torch]

@@ -11,14 +11,15 @@ P1. Kernel A alone (no-env forward, 1280x720 ``glass_spheres``, 8
     dependency between them; a trivial launch. If "together" is below
     "kernel + gather", the card runs the two at once (the TPU ran one op
     at a time). No new kernel.
-P2. K8a, ``row_copy`` (``csrc/probes/row_copy.cu``): n serial copies of
-    a table row into shared memory, each waited before the next, by TMA
-    bulk copy and by ``cp.async``, at the script's 512-byte row and the
-    real 16-byte texel row: ns per copy.
+P2. K8a, ``row_copy`` (``csrc/probes/row_copy.cu``): n copies of a table
+    row into shared memory with up to ``depth`` in flight (1, 2, 4, 8;
+    depth 1 is the script's serial start-then-wait), by TMA bulk copy and
+    by ``cp.async``, at the script's 512-byte row and the real 16-byte
+    texel row: ns per copy at each depth.
 P3. K8b, ``dsmem_gather`` (``csrc/probes/dsmem_gather.cu``): a gather
     from a (256, 512) f32 table held in the shared memory of a cluster of
     4 blocks, at the script's (16, 128) queries and at the gather race's
-    921600 queries beside K7's gather through L2.
+    921600 queries, beside K7's gather through L2 and ``table[rows, cols]``.
 
 Times: CUDA events on the GPU; on the CPU (``--backend torch``) the
 plain versions, the host clock, and P1 without streams.
@@ -43,10 +44,12 @@ W, H = 1280, 720
 TABLE_ROWS = 131072                    # P2's table: (131072, 128) f32
 SLOTS = 8                              # P2's on-chip buffer: (8, row)
 COPIES = (256, 1024, 4096)
+DEPTHS = (1, 2, 4, 8)                  # copies in flight; 1 is serial
 ROW_FLOATS = (128, 4)                  # 512-byte and 16-byte rows
 MECHANISMS = ("tma", "cp_async")
 TH, TW = 256, 512                      # P3's table
 CLUSTER = 4                            # blocks holding P3's table
+VEC = 4                                # K8b's queries a thread and iteration
 
 
 def row_copy_reference(table, idx) -> torch.Tensor:
@@ -60,11 +63,14 @@ def row_copy_reference(table, idx) -> torch.Tensor:
     return out
 
 
-def row_copy(table, idx, mechanism: str = "tma") -> torch.Tensor:
+def row_copy(table, idx, mechanism: str = "tma", depth: int = SLOTS) -> torch.Tensor:
     """K8a wrapper: the (8, row) buffer after copying row idx[i] of
-    ``table`` (rows of 16 to 512 bytes) into slot i % 8, one at a time."""
+    ``table`` (rows of 16 to 512 bytes) into slot i % 8, with up to
+    ``depth`` (1..8) copies in flight; the plain version ignores it."""
     if mechanism not in MECHANISMS:
         raise ValueError(f"row_copy: mechanism {mechanism!r} not in {MECHANISMS}")
+    if not (isinstance(depth, int) and 1 <= depth <= SLOTS):
+        raise ValueError(f"row_copy: depth {depth!r} not in 1..{SLOTS}")
     if idx.device.type == "cpu":
         return row_copy_reference(table, idx)
     if idx.device.type != "cuda":
@@ -80,7 +86,7 @@ def row_copy(table, idx, mechanism: str = "tma") -> torch.Tensor:
                       device=idx.device)
     err = load_library(PROBES).cprt_row_copy(
         table.data_ptr(), table.shape[0], table.shape[1], idx.data_ptr(),
-        idx.numel(), out.data_ptr(), int(mechanism == "tma"),
+        idx.numel(), out.data_ptr(), int(mechanism == "tma"), depth,
         torch.cuda.current_stream(idx.device).cuda_stream)
     check(err, f"row_copy({mechanism})", PROBES)
     row_copy.launches += 1
@@ -95,6 +101,19 @@ def dsmem_gather_reference(table, rows, cols) -> torch.Tensor:
     r = rows.clamp(0, TH - 1).long()
     c = cols.clamp(0, TW - 1).long()
     return table.reshape(-1)[r * TW + c]
+
+
+def dsmem_split(n: int, offsets: tuple) -> tuple:
+    """K8b's split of n queries, as ``cprt_dsmem_gather`` makes it from
+    the byte offsets modulo 16 of rows, cols and out: (head, body, tail),
+    a scalar head that aligns the three to 16 bytes (all of n where their
+    offsets differ), a ``VEC``-wide body and a scalar tail."""
+    off = offsets[0] % 16
+    if any(o % 16 != off for o in offsets):
+        return n, 0, 0
+    head = min(n, (16 - off) % 16 // 4)
+    body = (n - head) // VEC * VEC
+    return head, body, n - head - body
 
 
 def dsmem_gather(table, rows, cols) -> torch.Tensor:
@@ -112,12 +131,17 @@ def dsmem_gather(table, rows, cols) -> torch.Tensor:
         raise ValueError(f"dsmem_gather: table {tuple(table.shape)} "
                          f"{table.dtype}, rows {tuple(rows.shape)} "
                          f"{rows.dtype}, cols {tuple(cols.shape)} {cols.dtype}")
-    out = torch.empty(rows.shape, dtype=torch.float32, device=rows.device)
-    if rows.numel() == 0:
+    n = rows.numel()
+    # out shares rows' offset modulo 16 bytes, so a view of rows and cols
+    # that starts off 16 bytes still takes the vector body
+    buf = torch.empty(n + 3, dtype=torch.float32, device=rows.device)
+    skip = (rows.data_ptr() - buf.data_ptr()) % 16 // 4
+    out = buf[skip:skip + n].view(rows.shape)
+    if n == 0:
         return out
     err = load_library(PROBES).cprt_dsmem_gather(
-        table.data_ptr(), rows.data_ptr(), cols.data_ptr(), rows.numel(),
-        out.data_ptr(), torch.cuda.current_stream(rows.device).cuda_stream)
+        table.data_ptr(), rows.data_ptr(), cols.data_ptr(), n, out.data_ptr(),
+        torch.cuda.current_stream(rows.device).cuda_stream)
     check(err, "dsmem_gather", PROBES)
     dsmem_gather.launches += 1
     return out
@@ -205,7 +229,7 @@ def p1_stream_overlap(device, width: int = W, height: int = H,
 
 
 def p2_row_copy_cost(device, seed: int = 0, iters: int = 8) -> dict:
-    """ns per serial row copy, by mechanism and row size."""
+    """ns per row copy, by mechanism, row size and copies in flight."""
     rng = np.random.default_rng(seed)
     table = torch.from_numpy(rng.random((TABLE_ROWS, 128), dtype=np.float32)).to(device)
     idx = torch.from_numpy(rng.integers(0, TABLE_ROWS, max(COPIES),
@@ -215,23 +239,29 @@ def p2_row_copy_cost(device, seed: int = 0, iters: int = 8) -> dict:
     for row in ROW_FLOATS:
         tbl = table if row == table.shape[1] else table[:, :row].contiguous()
         for mech in MECHANISMS:
-            for n in COPIES:
-                key = (mech, row * 4, n)
-                got = row_copy(tbl, idx[:n], mech)
-                correct[key] = bool(torch.equal(got, row_copy_reference(tbl, idx[:n])))
-                ms[key] = device_ms(lambda: row_copy(tbl, idx[:n], mech), iters, device)
-                _line(f"P2 {n} serial {row * 4} B row copies, {mech}", ms[key], where)
-                print(f"P2   -> {ms[key] * 1e6 / n:.1f} ns/copy; correct: "
-                      f"{correct[key]}")
-            lo, hi = min(COPIES), max(COPIES)
-            step = (ms[(mech, row * 4, hi)] - ms[(mech, row * 4, lo)]) * 1e6 / (hi - lo)
-            print(f"P2 {mech} {row * 4} B rows: {step:.1f} ns per added copy "
-                  f"(the launch taken out)")
+            for depth in DEPTHS:
+                for n in COPIES:
+                    key = (mech, row * 4, n, depth)
+                    got = row_copy(tbl, idx[:n], mech, depth)
+                    correct[key] = bool(torch.equal(
+                        got, row_copy_reference(tbl, idx[:n])))
+                    ms[key] = device_ms(lambda: row_copy(tbl, idx[:n], mech, depth),
+                                        iters, device)
+                    _line(f"P2 {n} {row * 4} B row copies, {mech}, depth {depth}",
+                          ms[key], where)
+                    print(f"P2   -> {ms[key] * 1e6 / n:.1f} ns/copy; correct: "
+                          f"{correct[key]}")
+                lo, hi = min(COPIES), max(COPIES)
+                step = (ms[(mech, row * 4, hi, depth)]
+                        - ms[(mech, row * 4, lo, depth)]) * 1e6 / (hi - lo)
+                print(f"P2 {mech} {row * 4} B rows, depth {depth}: {step:.1f} ns "
+                      f"per added copy (the launch taken out)")
     return dict(ms=ms, correct=correct, table=table, idx=idx)
 
 
 def p3_dsmem_gather(device, seed: int = 0, iters: int = 100) -> dict:
-    """The cluster gather at (16, 128) and 921600 queries, and K7 beside."""
+    """The cluster gather at (16, 128) and 921600 queries, and K7 and
+    torch indexing (both through L2) beside."""
     from cpuperformanceraytracer_tpu_torch.probes.gather_bench import (
         bench_inputs,
         texel_gather,
@@ -253,6 +283,17 @@ def p3_dsmem_gather(device, seed: int = 0, iters: int = 100) -> dict:
         _line(f"P3 DSMEM gather, cluster of {CLUSTER}, {rows.numel()} q",
               ms[key], where)
         print(f"   correct: {correct[key]}")
+        r64, c64 = rows.long(), cols.long()
+        ms[f"index_{key}"] = device_ms(lambda: table[r64, c64], iters, device)
+        _line(f"P3 table[rows, cols] (L2), {rows.numel()} q", ms[f"index_{key}"], where)
+    # the same launch with every query at texel (0, 0): the staging, the
+    # index and output bytes and one DSMEM address a warp; the difference
+    # to the uniform queries is the cost of their scattered remote reads
+    zero = torch.zeros_like(big[0])
+    ms["921600_same_texel"] = device_ms(lambda: dsmem_gather(table, zero, zero),
+                                        iters, device)
+    _line(f"P3 DSMEM gather, every query at texel (0, 0), {zero.numel()} q",
+          ms["921600_same_texel"], where)
     l2 = table.reshape(1, -1)
     ms["l2_921600"] = device_ms(lambda: texel_gather(l2, flat), iters, device)
     _line(f"P3 L2 gather (K7 planar), {flat.numel()} q", ms["l2_921600"], where)

@@ -548,25 +548,41 @@ def test_texel_gather_bit_equal(cuda_device, layout):
     assert torch.equal(got, gather_bench.texel_gather_reference(table, flat, packed))
 
 
-@pytest.mark.parametrize("n", [5, 1024, 4099])
+@pytest.mark.parametrize("n", [5, 256, 1024, 4096, 4099, 9000])
 @pytest.mark.parametrize("row", [128, 4])
 @pytest.mark.parametrize("mechanism", ["tma", "cp_async"])
 def test_row_copy_bit_equal(cuda_device, mechanism, row, n):
+    """Every depth; 9000 copies cross two edges of the staged chunks."""
     rng = np.random.default_rng(n)
     table = torch.from_numpy(rng.random((4096, row), dtype=np.float32)).to(cuda_device)
     idx = torch.from_numpy(rng.integers(-2, 4100, n, dtype=np.int32)).to(cuda_device)
-    got = overlap_probe.row_copy(table, idx, mechanism)
-    assert torch.equal(got, overlap_probe.row_copy_reference(table, idx))
+    want = overlap_probe.row_copy_reference(table, idx)
+    for depth in range(1, 9):
+        got = overlap_probe.row_copy(table, idx, mechanism, depth)
+        assert torch.equal(got, want), depth
 
 
-@pytest.mark.parametrize("n", [2048, 921600, 3])
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 2048, 921600])
 def test_dsmem_gather_bit_equal(cuda_device, n):
+    """Views of rows and cols that start 4, 8 and 12 bytes off, together
+    (a scalar head) and apart (all scalar)."""
     rng = np.random.default_rng(n)
     table = torch.from_numpy(rng.random((256, 512), dtype=np.float32)).to(cuda_device)
-    rows = torch.from_numpy(rng.integers(-1, 257, n, dtype=np.int32)).to(cuda_device)
-    cols = torch.from_numpy(rng.integers(-1, 513, n, dtype=np.int32)).to(cuda_device)
-    got = overlap_probe.dsmem_gather(table, rows, cols)
-    assert torch.equal(got, overlap_probe.dsmem_gather_reference(table, rows, cols))
+    rows = torch.from_numpy(rng.integers(-1, 257, n + 3, dtype=np.int32)).to(cuda_device)
+    cols = torch.from_numpy(rng.integers(-1, 513, n + 3, dtype=np.int32)).to(cuda_device)
+    views = [(rows[:n], cols[:n])] + [(rows[k:k + n], cols[k:k + n]) for k in (1, 2, 3)]
+    views.append((rows[1:n + 1], cols[:n]))
+    for r, c in views:
+        got = overlap_probe.dsmem_gather(table, r, c)
+        assert torch.equal(got, overlap_probe.dsmem_gather_reference(table, r, c))
+
+
+def test_dsmem_gather_repeats_bits(cuda_device):
+    tex, rows, cols = gather_bench.bench_inputs(2)
+    table = torch.from_numpy(tex[:, :, 0].copy()).to(cuda_device)
+    r, c = (torch.from_numpy(a).to(cuda_device) for a in (rows, cols))
+    first = overlap_probe.dsmem_gather(table, r, c)
+    assert torch.equal(overlap_probe.dsmem_gather(table, r, c), first)
 
 
 def test_probe_entry_points_count_launches(cuda_device):
@@ -601,6 +617,8 @@ def test_probe_wrappers_reject_bad_inputs(cuda_device):
         overlap_probe.row_copy(torch.zeros((10, 132), device=dev), idx)
     with pytest.raises(ValueError):
         overlap_probe.dsmem_gather(torch.zeros((128, 512), device=dev), idx, idx)
+    with pytest.raises(ValueError):
+        overlap_probe.row_copy(torch.zeros((10, 4), device=dev), idx, "tma", 9)
 
 
 # ---- fixed-order sums (kernels C and D), the diff path's cubemap, G --------

@@ -14,6 +14,9 @@ contracts, on the CPU.
   plain versions are held to the contracts with numpy and with eager
   ``jnp.take_along_axis`` (the Pallas bodies' own operation) on the same
   seeded inputs, bit for bit.
+- K8a's ring of copies in flight and K8b's split of the queries into a
+  scalar head, a vector body and a scalar tail, as Python models of the
+  kernels' schedules.
 - The three probe entry points on the CPU (``--backend torch``).
 """
 
@@ -191,6 +194,67 @@ def test_row_copy_contract(row, n):
     np.testing.assert_array_equal(got.numpy(), _row_copy_serial(table, idx))
 
 
+def _row_copy_ring(table, idx, depth, rng):
+    """K8a's schedule: issuer k of ``depth`` issues copies k, k + depth,
+    ..., copy i once copy i - depth (its own previous) and copy i - 8 (the
+    slot's previous) have completed; the issuers take turns and the copies
+    in flight complete in a random order, each writing its slot when it
+    completes."""
+    n = len(idx)
+    buf = np.zeros((8, table.shape[1]), np.float32)
+    done = np.zeros(n, bool)
+    nxt = list(range(depth))                 # each issuer's next copy
+    flight = []
+    while not done.all():
+        ready = [k for k in range(depth) if nxt[k] < n
+                 and (nxt[k] < depth or done[nxt[k] - depth])
+                 and (nxt[k] < 8 or done[nxt[k] - 8])]
+        if ready and (not flight or rng.random() < 0.5):
+            k = ready[rng.integers(len(ready))]
+            i = nxt[k]
+            assert len(flight) < depth
+            assert all(j % 8 != i % 8 for j in flight)   # one copy a slot
+            flight.append(i)
+            nxt[k] += depth
+        else:
+            assert flight, "no copy can be issued and none is in flight"
+            j = flight.pop(rng.integers(len(flight)))
+            buf[j % 8] = table[min(max(idx[j], 0), len(table) - 1)]
+            done[j] = True
+    return buf
+
+
+@pytest.mark.parametrize("n", [5, 8, 9, 256, 1027, 4096])
+@pytest.mark.parametrize("row", [128, 4])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 8])
+def test_row_copy_ring_order(depth, row, n):
+    """Copies in flight in any order leave the serial copies' buffer:
+    a slot is reused 8 copies on, never before its copy has landed."""
+    rng = np.random.default_rng(depth * 10_000 + n + row)
+    table = rng.random((2048, row), dtype=np.float32)
+    idx = rng.integers(-3, 2051, n, dtype=np.int32)
+    np.testing.assert_array_equal(_row_copy_ring(table, idx, depth, rng),
+                                  _row_copy_serial(table, idx))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_row_copy_contract_every_depth(depth):
+    rng = np.random.default_rng(depth)
+    table = rng.random((512, 128), dtype=np.float32)
+    idx = rng.integers(-3, 515, 1027, dtype=np.int32)
+    for mechanism in overlap_probe.MECHANISMS:
+        got = overlap_probe.row_copy(torch.from_numpy(table), torch.from_numpy(idx),
+                                     mechanism, depth)
+        np.testing.assert_array_equal(got.numpy(), _row_copy_serial(table, idx))
+
+
+@pytest.mark.parametrize("depth", [0, 9, -1])
+def test_row_copy_rejects_depth(depth):
+    table, idx = torch.zeros((16, 4)), torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="depth"):
+        overlap_probe.row_copy(table, idx, "tma", depth)
+
+
 @pytest.mark.parametrize("queries", [(16, 128), (1280 * 720,)])
 def test_dsmem_gather_matches_take_along_axis(queries):
     rng = np.random.default_rng(len(queries))
@@ -220,6 +284,37 @@ def test_dsmem_cluster_partition():
     parts = table.reshape(overlap_probe.CLUSTER, per, 512)   # one per rank
     want = parts[row // per, row % per, c.clamp(0, 511).long()]
     assert torch.equal(overlap_probe.dsmem_gather(table, r, c), want)
+
+
+def _dsmem_cover(n, offsets, threads=64):
+    """How often K8b's loops visit each query, on a grid of ``threads``
+    threads: the scalar head, the 4-wide body and the scalar tail, each
+    strided over the grid as in the kernel."""
+    vec = overlap_probe.VEC
+    head, body, tail = overlap_probe.dsmem_split(n, offsets)
+    assert head + body + tail == n and body % vec == 0 and 0 <= tail < vec
+    seen = np.zeros(n, np.int64)
+    for t in range(threads):
+        seen[t:head:threads] += 1
+        for v in range(t, body // vec, threads):
+            seen[head + v * vec:head + (v + 1) * vec] += 1
+        seen[head + body + t:n:threads] += 1
+    return head, seen
+
+
+@pytest.mark.parametrize("start", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 2048, 921600])
+def test_dsmem_split_covers_each_query_once(n, start):
+    """rows and cols viewed from int32 ``start`` of their buffers, out
+    allocated at the same offset modulo 16 bytes (the wrapper's rule)."""
+    off = 4 * start
+    head, seen = _dsmem_cover(n, (off, off, off))
+    assert (seen == 1).all()
+    assert head == min(n, (4 - start) % 4)          # the body starts aligned
+    assert (off + 4 * head) % 16 == 0 or head == n
+    # offsets that differ: every query on the scalar path, still once
+    head, seen = _dsmem_cover(n, (off, off + 4, off))
+    assert head == n and (seen == 1).all()
 
 
 def test_probe_library_builds_apart():
@@ -270,8 +365,9 @@ def test_overlap_probe_entry_points_cpu(capsys):
     assert set(p1["ms"]) == {"trivial", "kernel", "gather", "together"}
     assert p1["queries"] == 32 * 16
     p2 = overlap_probe.p2_row_copy_cost(dev, iters=1)
-    assert len(p2["correct"]) == 12 and all(p2["correct"].values())
+    assert len(p2["correct"]) == 48 and all(p2["correct"].values())
     p3 = overlap_probe.p3_dsmem_gather(dev, iters=1)
+    assert set(p3["correct"]) == {"16x128", "921600"}
     assert all(p3["correct"].values())
     out = capsys.readouterr().out
     assert "P1 together < kernel + gather" in out and "ns/copy" in out
