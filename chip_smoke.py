@@ -64,10 +64,13 @@ Phases, one line each; any failure raises and the exit code is not 0:
    call, 16 more at K = 16 for the capture's warm-up run, and A and B
    once more for the target; the wrappers' counters, which count no
    capture and cannot see a replay, count the launches outside the
-   graph. A second, untraced run of the same bench gives ms/step; for
+   graph (a trace the profiler left short, every count at most the
+   expected one, is taken again, up to 3 times, and the last must match
+   exactly). A second, untraced run of the same bench gives ms/step; for
    each K the device time per step with the stream kept full, the idle
    share and the host's enqueue time per dispatch. torch.profiler over
-   one replay of a K = 16 graph counts 16 launches each of A-D and
+   one replay of a K = 16 graph counts 16 launches each of A-D (a short
+   trace taken again as above) and
    splits its device time by kernel; the graphed grad_sum and losses
    bit-equal to 16 ungraphed steps summed in order, and 16 graphed Adam
    steps (capturable) leave
@@ -106,16 +109,22 @@ Phases, one line each; any failure raises and the exit code is not 0:
 14. the probes (kernels K6-K8, built into their own library in phase 2):
    with the probe kernels' launch counts set to 0, the three probe entry
    points run as a user runs them (``probes.trace_probe``, ``probes.
+   gather_bench``, ``probes.overlap_probe``: P1 kernel A and the texel
    gather on two streams, P2 row copies with 1 to 8 in flight, P3 the
    cluster gather) and every probe kernel must have launched; then each
    kernel against its plain version on the card: K6 on the CUDA cores at
    rtol 1e-6 (the same chains in the same order), on the tensor cores
-   (3xTF32) under 1e-4 max relative error against the CUDA cores; K7 in
-   all three layouts, K8a (TMA and cp.async, 512- and 16-byte rows, 256
-   to 4096 copies, 1, 2, 4 and 8 in flight) and K8b (0, 1, 3, 5, 2048
-   and 921600 queries and views one int32 off; two launches bit-equal)
-   bit-equal; K8a's in-flight bound n t1 /
-   depth from its depth-1 time in the same run; last, kernels B,
+   (3xTF32) per warp (mma.sync) and per warpgroup (wgmma), each under
+   1e-4 max relative error against the CUDA cores, wgmma also against
+   the plain version, two wgmma launches bit-equal; the CUDA cores' issue
+   bound under --fmad=false at the SM clock read (nvidia-smi clocks.sm)
+   while they run; K7 in all three layouts at 0, 1, 3, 5, 2048 and
+   921600 queries and on index views 4, 8 and 12 bytes off, K8a (TMA and
+   cp.async, 512- and 16-byte rows, 256 to 4096 copies, 1, 2, 4 and 8 in
+   flight) and K8b (0, 1, 3, 5, 2048 and 921600 queries and views one
+   int32 off; two launches bit-equal) bit-equal; K8a's in-flight bound n
+   t1 / depth from its depth-1 time in the same run; the ptxas registers
+   and spills of K6 and K7; last, kernels B,
    D, E and G and ``index_add_`` at 720p timed both ways, back to back
    (as phases 4-12 time them) and with the stream held full (as the
    probes time theirs): where back to back is longer, the host's
@@ -578,6 +587,9 @@ def replay_profile(step, k: int) -> tuple:
     return counts, ms
 
 
+# traces of the training run a short trace may take (see phase_training)
+TRACE_ATTEMPTS = 3
+
 # kernels A-D by their CUDA function names (D's first kernel: the runs)
 TRAIN_KERNELS = {"render_planes": "render_planes_kernel",
                  "env_accumulate": "env_accumulate_kernel",
@@ -622,36 +634,47 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
     loss_fn = bench_loss(cfg, scene, cam, tex)
     runs = {}
     for k in (STEPS_PER_DISPATCH, 1):
-        # the main path's run, traced: kernel launches on the device
-        for kern in kernels:
-            kern.launches = 0
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            traced = fwd_bwd_benchmark(cfg, scene, cam, tex, steps=STEPS,
-                                       steps_per_dispatch=k, spans=2)
+        # the main path's run, traced: kernel launches on the device.
+        # torch.profiler's CUDA activity now and then lacks records of
+        # graph replays (a trace short by part of a replay, the wrapper
+        # counts exact): such a short trace is taken again, at most
+        # TRACE_ATTEMPTS times, and the last one must match exactly
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            for kern in kernels:
+                kern.launches = 0
             torch.cuda.synchronize()
-        wrapper = {kern.__name__: kern.launches for kern in kernels}
-        launches = {name: sum(e.count for e in prof.key_averages()
-                              if fn in e.key)
-                    for name, fn in TRAIN_KERNELS.items()}
-        # a step a call of the warmup, the untimed span (half the timed
-        # steps) and the timed spans; K > 1: the capture's warm-up run
-        # (K steps, outside the graph); A and B once more for the target
-        steps_run = WARMUP_CALLS * k + traced["steps_timed"] * 3 // 2
-        outside = k + 1 if k > 1 else steps_run + 1
-        expect = {"render_planes": steps_run + (k if k > 1 else 0) + 1}
-        expect["env_accumulate"] = expect["render_planes"]
-        expect["bwd_tables"] = expect["env_backward"] = expect[
-            "render_planes"] - 1
-        expect_wrapper = {"render_planes": outside, "env_accumulate": outside,
-                          "bwd_tables": outside - 1, "env_backward": outside - 1}
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                traced = fwd_bwd_benchmark(cfg, scene, cam, tex, steps=STEPS,
+                                           steps_per_dispatch=k, spans=2)
+                torch.cuda.synchronize()
+            wrapper = {kern.__name__: kern.launches for kern in kernels}
+            launches = {name: sum(e.count for e in prof.key_averages()
+                                  if fn in e.key)
+                        for name, fn in TRAIN_KERNELS.items()}
+            del prof
+            # a step a call of the warmup, the untimed span (half the timed
+            # steps) and the timed spans; K > 1: the capture's warm-up run
+            # (K steps, outside the graph); A and B once more for the target
+            steps_run = WARMUP_CALLS * k + traced["steps_timed"] * 3 // 2
+            outside = k + 1 if k > 1 else steps_run + 1
+            expect = {"render_planes": steps_run + (k if k > 1 else 0) + 1}
+            expect["env_accumulate"] = expect["render_planes"]
+            expect["bwd_tables"] = expect["env_backward"] = expect[
+                "render_planes"] - 1
+            expect_wrapper = {"render_planes": outside, "env_accumulate": outside,
+                              "bwd_tables": outside - 1, "env_backward": outside - 1}
+            if not (wrapper == expect_wrapper and launches != expect
+                    and all(launches[n] <= expect[n] for n in expect)):
+                break
+            print(f"[training bench] K={k}: trace {attempt} short, device "
+                  f"launches {launches}, expected {expect}; traced again",
+                  flush=True)
         if launches != expect or wrapper != expect_wrapper:
             raise AssertionError(
                 f"training K={k}: device launches {launches}, expected "
                 f"{expect}; wrapper counts {wrapper}, expected "
-                f"{expect_wrapper}")
-        del prof
+                f"{expect_wrapper} (trace {attempt} of {TRACE_ATTEMPTS})")
         r = fwd_bwd_benchmark(cfg, scene, cam, tex, steps=STEPS,
                               steps_per_dispatch=k, spans=2)
         if not (r["grads_finite"] and traced["grads_finite"]) or r[
@@ -679,6 +702,7 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
         enqueue_ms = (time.perf_counter() - t0) / n * 1e3
         torch.cuda.synchronize()
         runs[k] = dict(r, launches=launches, wrapper_launches=wrapper,
+                       trace_attempts=attempt,
                        traced_ms_per_step=traced["ms_per_step"],
                        device_busy_ms_per_step=busy_ms,
                        idle_share=1.0 - busy_ms / r["ms_per_step"],
@@ -688,17 +712,23 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
               f"device busy {busy_ms:.4f} ms/step; idle share "
               f"{runs[k]['idle_share']:.4f}; host enqueue {enqueue_ms:.4f} "
               f"ms/dispatch; traced run {traced['ms_per_step']:.4f} ms/step, "
-              f"device launches {launches} ({steps_run} steps), wrapper "
-              f"counts {wrapper}")
+              f"device launches {launches} ({steps_run} steps; trace "
+              f"{attempt}), wrapper counts {wrapper}")
 
     # one replay of the K-step graph: K launches of each of kernels A-D
     step_k = make_grad_step_k(loss_fn, STEPS_PER_DISPATCH)
     got_sum, got_losses = step_k(params, 1)
-    replay, replay_ms = replay_profile(lambda: step_k(params, 1),
-                                       STEPS_PER_DISPATCH)
-    want = {name: STEPS_PER_DISPATCH for name in replay}
-    if {n: replay[n] for n in want} != want:
-        raise AssertionError(f"one replay launched {replay}, expected {want}")
+    want = {name: STEPS_PER_DISPATCH for name in TRAIN_KERNELS.values()}
+    for attempt in range(1, TRACE_ATTEMPTS + 1):        # as the traced runs
+        replay, replay_ms = replay_profile(lambda: step_k(params, 1),
+                                           STEPS_PER_DISPATCH)
+        if replay == want or any(replay[n] > want[n] for n in want):
+            break
+        print(f"[training bench] one replay: trace {attempt} short, "
+              f"{replay}; traced again", flush=True)
+    if replay != want:
+        raise AssertionError(f"one replay launched {replay}, expected {want} "
+                             f"(trace {attempt} of {TRACE_ATTEMPTS})")
     want_sum, want_losses = grad_steps(
         loss_fn, params, [1 + i for i in range(STEPS_PER_DISPATCH)])
     torch.cuda.synchronize()
@@ -1106,7 +1136,26 @@ def phase_checkpoint(dev) -> None:
           "in a new renderer == 12 frames in one run, bit for bit")
 
 
-def phase_probes(dev, gpu) -> tuple:
+def sm_clock_under_load(fn, calls: int) -> float:
+    """The highest SM clock in MHz that nvidia-smi reports (clocks.sm,
+    sampled every 50 ms) while ``calls`` calls of ``fn`` run back to back
+    on the card: the highest clock gives the least time, so a bound taken
+    at it stays a bound."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+         "-lms", "50"], stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.5)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=60)[0]
+    return max(float(v) for v in out.split())
+
+
+def phase_probes(dev, gpu, probe_log: str) -> tuple:
     """Phase 14: the probe entry points with counted launches, then K6-K8
     against their plain versions; the four kernels' JSON rows. Times are
     device times with the stream held full (``device_ms``), except the
@@ -1147,10 +1196,27 @@ def phase_probes(dev, gpu) -> tuple:
                                      got)
     if not tc_err < 1e-4:
         raise AssertionError(f"K6 tensor_core vs cuda_core: max rel err {tc_err}")
+    wg = trace_probe.trace_dots(x, B, "wgmma")
+    wg_err = trace_probe.max_rel_err(wg, got)
+    wg_err_plain = trace_probe.max_rel_err(wg, want)
+    if not (wg_err < 1e-4 and wg_err_plain < 1e-4):
+        raise AssertionError(f"K6 wgmma: max rel err {wg_err} vs cuda_core, "
+                             f"{wg_err_plain} vs plain")
+    if not bits_equal(wg, trace_probe.trace_dots(x, B, "wgmma")):
+        raise AssertionError("K6 wgmma: two launches differ")
     plain_k6 = cuda_ms(lambda: trace_probe.trace_dots_reference(x, B), 2, 1)
     chain = trace_probe.REPEAT * n * 55
-    bound_cc = bound(n * 9 * 4, trace_probe.REPEAT * n * trace_probe.NCOL * 15 + chain)
+    flops_cc = trace_probe.REPEAT * n * trace_probe.NCOL * 15 + chain
+    bound_cc = bound(n * 9 * 4, flops_cc)
     bound_tc = bound(n * 9 * 4, chain, 3 * trace_probe.REPEAT * n * 56 * 8 * 2)
+    # under --fmad=false each mul and add is an instruction: the SMs issue
+    # 128 lanes a clock each, at the clock read while the CUDA cores run
+    mhz = sm_clock_under_load(lambda: trace_probe.trace_dots(x, B, "cuda_core"), 5000)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    issue_cc = flops_cc / (sms * 128 * mhz * 1e6) * 1e3
+    ptxas_k6 = {unit: ptxas_of(probe_log, f"trace_dots_{unit}") for unit in trace_probe.UNITS}
+    ptxas_k7 = {lay: ptxas_of(probe_log, f"gather_{lay}") for lay in ("planar", "packed")}
+    losses = [ln.strip() for ln in probe_log.splitlines() if "Performance Loss" in ln]
 
     # K7: the race's entries, each layout bit-equal to the plain version
     planes, packed, flat = g["planes"], g["packed"], g["flat"]
@@ -1158,17 +1224,26 @@ def phase_probes(dev, gpu) -> tuple:
                "packed": (packed, True)}
     k7 = {}
     for key, (table, pk) in layouts.items():
+        for q in (0, 1, 3, 5, 2048, flat.numel()):
+            for k in range(4):                   # views 0, 4, 8, 12 bytes off
+                idx = flat[k:k + q]
+                if not torch.equal(gather_bench.texel_gather(table, idx, pk),
+                                   gather_bench.texel_gather_reference(table, idx, pk)):
+                    raise AssertionError(f"K7 {key} differs at {q} queries, view {k}")
         out = gather_bench.texel_gather(table, flat, pk)
-        if not torch.equal(out, gather_bench.texel_gather_reference(
-                table, flat, pk)):
-            raise AssertionError(f"K7 {key} differs from its plain version")
+        if not bits_equal(out, gather_bench.texel_gather(table, flat, pk)):
+            raise AssertionError(f"K7 {key}: two launches differ")
         k7[key] = dict(
             ms=dms(lambda: gather_bench.texel_gather(table, flat, pk), 100),
             plain_ms=dms(lambda: gather_bench.texel_gather_reference(
                 table, flat, pk), 20),
-            bound=bound(4 * (flat.numel() + out.numel() + table.numel()), 0))
+            bound=bound(4 * (flat.numel() + out.numel() + table.numel()), 0),
+            # each random read moves a 32-byte L2 sector to the SM
+            l2_sector_bytes=32 * flat.numel() * (1 if pk else table.shape[0]))
     flat64 = flat.long()
     k7["planar_1"]["library_ms"] = dms(lambda: planes[0][flat64], 100)
+    k7["planar_3"]["library_ms"] = dms(lambda: planes[:, flat64], 100)
+    k7["planar_3"]["plane_flat_x3_ms"] = g["ms"]["torch plane[flat] x3"]
     k7["packed"]["library_ms"] = dms(lambda: packed.index_select(0, flat64), 100)
     if not all(g["correct"].values()):
         raise AssertionError(f"gather race: {g['correct']}")
@@ -1232,12 +1307,17 @@ def phase_probes(dev, gpu) -> tuple:
 
     phase("probes", f"launches {launches}; K6 cuda_core "
           f"{t['ms']['cuda_core']:.4f} ms (plain {plain_k6:.2f}, bound "
-          f"{bound_cc[0]:.4f}, max abs err vs plain {err_k6:.3g}), tensor_core "
+          f"{bound_cc[0]:.4f}, --fmad=false issue bound {issue_cc:.4f} at "
+          f"{mhz:.0f} MHz, max abs err vs plain {err_k6:.3g}), tensor_core "
           f"{t['ms']['tensor_core']:.4f} ms (bound {bound_tc[0]:.4f}, max rel "
-          f"err vs cuda_core {tc_err:.3e}); K7 " + ", ".join(
-              f"{k} {v['ms']:.4f} ms" for k, v in k7.items())
-          + f" (plane[flat] {k7['planar_1']['library_ms']:.4f}, index_select "
-          f"(N,4) {k7['packed']['library_ms']:.4f}); K8a ns/copy at 4096, "
+          f"err vs cuda_core {tc_err:.3e}), wgmma {t['ms']['wgmma']:.4f} ms "
+          f"(max rel err vs cuda_core {wg_err:.3e}, vs plain {wg_err_plain:.3e});"
+          f" K7 " + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in k7.items())
+          + f" (plane[flat] {k7['planar_1']['library_ms']:.4f}, planes[:, flat] "
+          f"{k7['planar_3']['library_ms']:.4f}, plane[flat] x3 "
+          f"{k7['planar_3']['plane_flat_x3_ms']:.4f}, index_select "
+          f"(N,4) {k7['packed']['library_ms']:.4f}); ptxas K6 {ptxas_k6}, K7 "
+          f"{ptxas_k7}, performance-loss notes {losses or 'none'}; K8a ns/copy at 4096, "
           "depth 1 / 8: " + ", ".join(
               f"{m} {b} B {k8a[(m, b, 4096, 1)]['ns_per_copy']:.1f} / "
               f"{k8a[(m, b, 4096, 8)]['ns_per_copy']:.1f}"
@@ -1264,10 +1344,15 @@ def phase_probes(dev, gpu) -> tuple:
              replaces="scripts/mxu_trace_probe.py:77",
              launches=launches["trace_dots"], max_abs_err=err_k6,
              ms=t["ms"]["cuda_core"], plain_ms=plain_k6, bound=bound_cc,
-             library_ms=None, launches_by_path={}, variants=variants({
-                 "cuda_core": dict(ms=t["ms"]["cuda_core"], bound=bound_cc),
+             library_ms=None, launches_by_path={}, ptxas=ptxas_k6,
+             variants=variants({
+                 "cuda_core": dict(ms=t["ms"]["cuda_core"], bound=bound_cc,
+                                   issue_bound_ms=issue_cc, sm_clock_mhz=mhz),
                  "tensor_core": dict(ms=t["ms"]["tensor_core"], bound=bound_tc,
-                                     max_rel_err_vs_cuda_core=tc_err)})),
+                                     max_rel_err_vs_cuda_core=tc_err),
+                 "wgmma": dict(ms=t["ms"]["wgmma"], bound=bound_tc,
+                               max_rel_err_vs_cuda_core=wg_err,
+                               max_rel_err_vs_plain=wg_err_plain)})),
         dict(name="texel_gather",
              source="cpuperformanceraytracer_tpu_torch/csrc/probes/texel_gather.cu",
              replaces="scripts/gather_bench.py:85",
@@ -1275,7 +1360,7 @@ def phase_probes(dev, gpu) -> tuple:
              ms=k7["planar_1"]["ms"], plain_ms=k7["planar_1"]["plain_ms"],
              bound=k7["planar_1"]["bound"],
              library_ms=k7["planar_1"]["library_ms"], launches_by_path={},
-             variants=variants(k7)),
+             ptxas=ptxas_k7, variants=variants(k7)),
         dict(name="row_copy",
              source="cpuperformanceraytracer_tpu_torch/csrc/probes/row_copy.cu",
              replaces="scripts/overlap_probe.py:159",
@@ -1872,7 +1957,7 @@ def main() -> int:
     phase_checkpoint(dev)
 
     # ---- phase 14: the probes --------------------------------------------
-    probe_rows, probes = phase_probes(dev, gpu)
+    probe_rows, probes = phase_probes(dev, gpu, builds[1].log)
     probes["held_stream_720p"] = phase_held_times(dev, planes, gi, tex, cfg,
                                                   accum)
 

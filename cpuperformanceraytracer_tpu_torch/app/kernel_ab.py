@@ -1,5 +1,5 @@
-"""Compare kernels A, C, D and G, and the probe kernels K8a and K8b, of
-two or more checkouts of the port on one GPU.
+"""Compare kernels A, C, D and G, and the probe kernels K6-K8, of two or
+more checkouts of the port on one GPU.
 
     python -m cpuperformanceraytracer_tpu_torch.app.kernel_ab \\
         --trees build/parent . --out out/kernel_ab
@@ -33,8 +33,13 @@ kernels:
 - reports kernel A's lane utilisation where the tree's wrapper counts
   it, and the ptxas lines of the tree's kernels.
 
-probes (the overlap probe's P2 and P3 inputs, held full):
+probes (held full; the ptxas lines of the tree's probe kernels):
 
+- K6 on the trace probe's 720p inputs, each unit the tree has
+  (``cuda_core``, ``tensor_core``, and ``wgmma`` where it exists, with
+  its max relative error against the same run's CUDA cores);
+- K7 on the gather race's 921600 queries, in its three layouts (one
+  plane, three planes, the packed (N, 4) table);
 - K8a, 4096 copies of 512- and 16-byte rows by TMA and by cp.async, at
   the wrapper's default (serial in a tree without ``depth``, 8 in flight
   with it) and, where the wrapper takes ``depth``, at depth 1;
@@ -45,11 +50,13 @@ Then every run's planes are compared with the first run's, bit for bit:
 the parity of the trees' kernel A (and the determinism of each); every
 run's kernel C cotangents with the first run's, each table within 2e-2
 relative L2 (phase 6 of ``chip_smoke.py``: the trees may sum in other
-orders), and the bits that differ are counted; every run's K8a and K8b
-outputs with the first run's, bit for bit (K8a at depth 1 with the first
-run's default where that tree has no depth). Prints one JSON line per
-run, a summary line per tree (mean, min, max) and a parity line; the
-lines also go to ``<out>/runs.jsonl``. Exit 1 where a comparison fails.
+orders), and the bits that differ are counted; every run's K6 (CUDA
+cores and mma.sync), K7, K8a and K8b outputs with the first run's, bit
+for bit (K8a at depth 1 with the first run's default where that tree has
+no depth), and each wgmma output within 1e-4 of its run's CUDA cores.
+Prints one JSON line per run, a summary line per tree (mean, min, max)
+and a parity line; the lines also go to ``<out>/runs.jsonl``. Exit 1
+where a comparison fails.
 """
 
 from __future__ import annotations
@@ -185,19 +192,40 @@ res["textured_ms_per_frame"] = OfflineRenderer(
     tex_cfg, texture=big, scene=scene, camera=cam, silent=True).run().mean_ms
 res["ptxas"] = ptxas
 
-# K8a and K8b at the overlap probe's own inputs (P2, P3), held full;
-# their outputs kept for the bit-for-bit comparison across runs
+# K6 and K7 at their probes' inputs (720p trace dots, the 921600-query
+# race), K8a and K8b at the overlap probe's own (P2, P3), held full; their
+# outputs kept for the bit-for-bit comparison across runs (the wgmma
+# unit's, which a tree before it lacks, held to its own CUDA cores)
 import numpy as np
+from cpuperformanceraytracer_tpu_torch.probes import gather_bench as gb
 from cpuperformanceraytracer_tpu_torch.probes import overlap_probe as op
-from cpuperformanceraytracer_tpu_torch.probes.gather_bench import bench_inputs
+from cpuperformanceraytracer_tpu_torch.probes import trace_probe as tp
 probe_build = _build.build(_build.PROBES)
 res["probe_ptxas"] = [ln.strip() for ln in probe_build.log.splitlines()
-                      if "registers" in ln or "spill" in ln]
+                      if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+outs = {}
+xn, Bn = tp.probe_inputs()
+x, B = torch.from_numpy(xn).to(dev), torch.from_numpy(Bn).to(dev)
+for unit in tp.UNITS:
+    got = tp.trace_dots(x, B, unit)
+    res[f"K6_{unit}_ms"] = device_ms(lambda: tp.trace_dots(x, B, unit), 16, dev, warm=1)
+    if unit == "wgmma":
+        res["K6_wgmma_max_rel_err_vs_cuda_core"] = tp.max_rel_err(got, outs["K6_cuda_core"])
+    else:
+        outs[f"K6_{unit}"] = got
+tex, rows_n, cols_n = gb.bench_inputs(0)
+texf = torch.from_numpy(tex.reshape(-1, 3)).to(dev)
+planes = texf.t().contiguous()
+packed = torch.cat([texf, torch.zeros_like(texf[:, :1])], 1).contiguous()
+flat = torch.from_numpy(rows_n * gb.W + cols_n).to(dev)
+for key, table, pk in (("planar_1", planes[:1], False), ("planar_3", planes, False),
+                       ("packed", packed, True)):
+    outs[f"K7_{key}"] = gb.texel_gather(table, flat, pk)
+    res[f"K7_{key}_ms"] = device_ms(lambda: gb.texel_gather(table, flat, pk), 100, dev)
 has_depth = "depth" in inspect.signature(op.row_copy).parameters
 rng = np.random.default_rng(0)
 table = torch.from_numpy(rng.random((op.TABLE_ROWS, 128), dtype=np.float32)).to(dev)
 idx = torch.from_numpy(rng.integers(0, op.TABLE_ROWS, 4096, dtype=np.int32)).to(dev)
-outs = {}
 for row in (128, 4):
     tbl = table if row == 128 else table[:, :row].contiguous()
     for mech in ("tma", "cp_async"):
@@ -212,8 +240,7 @@ rng = np.random.default_rng(0)
 tab = torch.from_numpy(rng.random((op.TH, op.TW), dtype=np.float32)).to(dev)
 small = [torch.from_numpy(rng.integers(0, hi, (16, 128), dtype=np.int32)).to(dev)
          for hi in (op.TH, op.TW)]
-_, rows_n, cols_n = bench_inputs(0)
-big = [torch.from_numpy(x).to(dev) for x in (rows_n, cols_n)]
+big = [torch.from_numpy(a).to(dev) for a in (rows_n, cols_n)]
 for q, (r, c) in (("2048", small), ("921600", big)):
     outs[f"K8b_{q}"] = op.dsmem_gather(tab, r, c)
     res[f"K8b_{q}_ms"] = device_ms(lambda: op.dsmem_gather(tab, r, c), 100, dev)
@@ -222,7 +249,6 @@ for q, (r, c) in (("2048", small), ("921600", big)):
 torch.cuda.synchronize()
 torch.save({k: v.cpu() for k, v in outs.items()},
            os.path.join(planes_dir, f"{tag}_probes.pt"))
-
 res["gpu"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                              "--format=csv,noheader"], capture_output=True,
                             text=True, timeout=60).stdout.strip().splitlines()[0]
@@ -236,7 +262,10 @@ METRICS = ("A_720p_wang_ms", "A_720p_wang_held_ms", "A_1080p_counter_ms",
            "A_720p_wang_lane_utilisation", "A_1080p_counter_lane_utilisation",
            *(f"K8a_{m}_{b}B{d}_ms" for m in ("tma", "cp_async") for b in (512, 16)
              for d in ("", "_depth1")),
-           "K8b_2048_ms", "K8b_921600_ms", "index_2048_ms", "index_921600_ms")
+           "K8b_2048_ms", "K8b_921600_ms", "index_2048_ms", "index_921600_ms",
+           "K6_cuda_core_ms", "K6_tensor_core_ms", "K6_wgmma_ms",
+           "K6_wgmma_max_rel_err_vs_cuda_core",
+           *(f"K7_{k}_ms" for k in ("planar_1", "planar_3", "packed")))
 SHAPES = ("720p_wang", "1080p_counter", "cornell_128x32_spp2_wang")
 
 
@@ -284,8 +313,8 @@ def kernel_c_agreement(planes_dir: str, tags: list) -> dict:
 
 
 def probe_parity(planes_dir: str, tags: list) -> dict:
-    """Per run: the K8a and K8b outputs whose bits differ from the first
-    run's, by key; a key the first run lacks (K8a at depth 1 where the
+    """Per run: the K6 (CUDA cores and mma.sync), K7, K8a and K8b outputs
+    whose bits differ from the first run's, by key; a key the first run lacks (K8a at depth 1 where the
     first tree has no depth) is held to the serial run of its mechanism
     and row."""
     ref = torch.load(os.path.join(planes_dir, f"{tags[0]}_probes.pt"))
@@ -318,8 +347,7 @@ def main(argv=None) -> int:
         os.makedirs(a.out, exist_ok=True)
     rows = []
     for i, tree in enumerate(order):
-        row = dict(run=i, tree=tree, **run_tree(tree, planes_dir, f"run{i}",
-                                                a.timeout))
+        row = dict(run=i, tree=tree, **run_tree(tree, planes_dir, f"run{i}", a.timeout))
         rows.append(row)
         print(json.dumps(row), flush=True)
     summary = []
@@ -341,6 +369,8 @@ def main(argv=None) -> int:
             max(v["rel_l2"]) < 2e-2 for v in c_diff.values()),
         "probes_vs_run0": p_diff, "probes_bit_equal": all(
             v == 0 for per in p_diff.values() for v in per.values()),
+        "wgmma_within_1e-4": all(
+            r.get("K6_wgmma_max_rel_err_vs_cuda_core", 0.0) < 1e-4 for r in rows),
         "runs": {r["tag"]: r["tree"] for r in rows}}
     print(json.dumps(line), flush=True)
     if a.out:
@@ -348,7 +378,7 @@ def main(argv=None) -> int:
             for r in rows + summary + [line]:
                 f.write(json.dumps(r) + "\n")
     return 0 if (line["bit_equal"] and line["kernel_c_within_2e-2"]
-                 and line["probes_bit_equal"]) else 1
+                 and line["probes_bit_equal"] and line["wgmma_within_1e-4"]) else 1
 
 
 if __name__ == "__main__":

@@ -121,7 +121,7 @@ _SIGNATURES = {
 }
 _PROBE_SIGNATURES = {
     "cprt_trace_dots": [
-        _P, _P, _P, _I, _I,               # x (8, n), B (54, 8), out, n, tensor_core?
+        _P, _P, _P, _I, _I,               # x (8, n), B (54, 8), out, n, unit (0-2)
         _P,                               # stream
     ],
     "cprt_texel_gather": [

@@ -8,9 +8,10 @@ into a 512 x 256 f32 RGB texture, uniform rows and columns. The entries:
 2. ``index_select`` of the (N, 3) rows (torch; its ``xla_take_rows``);
 3. kernel E's texel fetch, ``kernels.env_gather.gather_texels`` (the
    counterpart of the TPU's one-hot MXU gather);
-4. K7, ``texel_gather`` (``csrc/probes/texel_gather.cu``): on the one
-   plane, as the script's ``pallas_tga``; on the three planes; and on a
-   packed (N, 4) RGBX table, one 16-byte load a query.
+4. K7, ``texel_gather`` (``csrc/probes/texel_gather.cu``, 4 queries a
+   thread, the table read through L1): on the one plane, as the script's
+   ``pallas_tga``; on the three planes; and on a packed (N, 4) RGBX
+   table, one 16-byte load a query.
 
 Each is timed with CUDA events on the GPU (the host clock, and the plain
 versions, on the CPU) and held bit for bit against ``plane[flat]``.
@@ -71,12 +72,19 @@ def texel_gather(table, idx, packed: bool = False) -> torch.Tensor:
                          f"{table.dtype}, idx {tuple(idx.shape)} {idx.dtype}"
                          f" (packed={packed})")
     entries, planes = (table.shape[0], 0) if packed else table.shape[::-1]
-    shape = (*idx.shape, 4) if packed else (planes, *idx.shape)
-    out = torch.empty(shape, dtype=torch.float32, device=idx.device)
-    if idx.numel() == 0:
+    n = idx.numel()
+    if packed:
+        out = torch.empty((*idx.shape, 4), dtype=torch.float32, device=idx.device)
+    else:
+        # out shares idx's offset modulo 16 bytes, so a view of idx that
+        # starts off 16 bytes still takes the vector body
+        buf = torch.empty(planes * n + 3, dtype=torch.float32, device=idx.device)
+        skip = (idx.data_ptr() - buf.data_ptr()) % 16 // 4
+        out = buf[skip:skip + planes * n].view(planes, *idx.shape)
+    if n == 0:
         return out
     err = load_library(PROBES).cprt_texel_gather(
-        table.data_ptr(), entries, planes, idx.data_ptr(), idx.numel(),
+        table.data_ptr(), entries, planes, idx.data_ptr(), n,
         out.data_ptr(), torch.cuda.current_stream(idx.device).cuda_stream)
     check(err, "texel_gather", PROBES)
     texel_gather.launches += 1

@@ -5,16 +5,18 @@ frame, 9 chained bounce segments, each taking the 54 dot products of an
 8-feature vector with the rows of ``B`` (54, 8): ``acc += U0 U1 - U2 +
 U3 + ... + U53``, then feature 0 becomes ``acc * 1e-6``. ``trace_dots``
 runs it on the CUDA cores (mul/add chains, as the script's VPU body) or
-on the tensor cores (TF32 MMAs split 3 ways for near-f32, as its MXU
-body at ``Precision.HIGHEST``); ``csrc/probes/trace_dots.cu`` has the
-design. ``B`` and ``x`` are the script's own numpy draws.
+on the tensor cores (TF32 products split 3 ways for near-f32, as its MXU
+body at ``Precision.HIGHEST``): per warp with ``mma.sync``
+(``tensor_core``) or per warpgroup with ``wgmma``, Hopper's full-rate
+instruction (``wgmma``). ``csrc/probes/trace_dots.cu`` has the designs.
+``B`` and ``x`` are the script's own numpy draws.
 
     python -m cpuperformanceraytracer_tpu_torch.probes.trace_probe
     python -m cpuperformanceraytracer_tpu_torch.probes.trace_probe \\
         --backend torch --height 8 --width 256      # plain version, CPU
 
 prints ms per frame-equivalent for each unit and the max relative error
-of the tensor cores against the CUDA cores (max |a - b| / max |b|).
+of each tensor-core unit against the CUDA cores (max |a - b| / max |b|).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
 
 H, W = 720, 1280
 NF, NCOL, REPEAT = 8, 54, 9
-UNITS = ("cuda_core", "tensor_core")
+UNITS = ("cuda_core", "tensor_core", "wgmma")   # index: cprt_trace_dots's unit
 
 
 def probe_inputs(height: int = H, width: int = W):
@@ -79,7 +81,7 @@ def trace_dots(x, B, unit: str = "cuda_core") -> torch.Tensor:
         return out
     err = load_library(PROBES).cprt_trace_dots(
         x.data_ptr(), B.data_ptr(), out.data_ptr(), n,
-        int(unit == "tensor_core"),
+        UNITS.index(unit),
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, f"trace_dots({unit})", PROBES)
     trace_dots.launches += 1
@@ -95,7 +97,8 @@ def max_rel_err(got, want) -> float:
 
 
 def run(device, height: int = H, width: int = W, iters: int = 16) -> dict:
-    """Time both units on the script's inputs and print its three lines."""
+    """Time the three units on the script's inputs and print its three
+    lines, then the wgmma unit's."""
     device = torch.device(device)
     xn, Bn = probe_inputs(height, width)
     x, B = torch.from_numpy(xn).to(device), torch.from_numpy(Bn).to(device)
@@ -104,13 +107,18 @@ def run(device, height: int = H, width: int = W, iters: int = 16) -> dict:
         out[unit] = trace_dots(x, B, unit)
         ms[unit] = device_ms(lambda: trace_dots(x, B, unit), iters, device, warm=1)
     err = max_rel_err(out["tensor_core"], out["cuda_core"])
+    err_wgmma = max_rel_err(out["wgmma"], out["cuda_core"])
     where = "" if device.type == "cuda" else " (plain version, CPU host clock)"
     print(f"tensor core mma (3xTF32): {ms['tensor_core']:8.4f} "
           f"ms/frame-equivalent{where}")
     print(f"cuda core unrolled     : {ms['cuda_core']:8.4f} "
           f"ms/frame-equivalent{where}")
     print(f"max rel err tensor-core vs cuda-core: {err:.3e}")
-    return dict(ms=ms, max_rel_err=err, out=out, x=x, B=B)
+    print(f"tensor core wgmma (3xTF32): {ms['wgmma']:8.4f} "
+          f"ms/frame-equivalent{where}")
+    print(f"max rel err wgmma vs cuda-core: {err_wgmma:.3e}")
+    return dict(ms=ms, max_rel_err=err, max_rel_err_wgmma=err_wgmma, out=out,
+                x=x, B=B)
 
 
 def main(argv=None) -> int:

@@ -548,6 +548,43 @@ def test_texel_gather_bit_equal(cuda_device, layout):
     assert torch.equal(got, gather_bench.texel_gather_reference(table, flat, packed))
 
 
+@pytest.mark.parametrize("hw", [(64, 256), (7, 45), (720, 1280)])
+def test_trace_dots_wgmma_matches_plain_and_cuda_core(cuda_device, hw):
+    """The wgmma unit (3xTF32, a warpgroup a 64-pixel tile) within the
+    tensor_core unit's 1e-4 of the plain version and of the CUDA cores;
+    7x45 leaves a ragged last tile; two launches, the same bits."""
+    xn, Bn = trace_probe.probe_inputs(*hw)
+    x, B = torch.from_numpy(xn).to(cuda_device), torch.from_numpy(Bn).to(cuda_device)
+    want = trace_probe.trace_dots_reference(x, B)
+    got = trace_probe.trace_dots(x, B, "wgmma")
+    assert trace_probe.max_rel_err(got, want) < 1e-4
+    assert trace_probe.max_rel_err(got, trace_probe.trace_dots(x, B, "cuda_core")) < 1e-4
+    again = trace_probe.trace_dots(x, B, "wgmma")
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 2048, 921600])
+@pytest.mark.parametrize("layout", ["one_plane", "three_planes", "packed"])
+def test_texel_gather_counts_and_views(cuda_device, layout, n):
+    """Each layout bit-equal at awkward counts and on index views 4, 8 and
+    12 bytes off (a scalar head); two launches give the same bits."""
+    tex, rows, cols = gather_bench.bench_inputs(3)
+    texf = torch.from_numpy(tex.reshape(-1, 3)).to(cuda_device)
+    planes = texf.t().contiguous()
+    table = {"one_plane": planes[:1], "three_planes": planes,
+             "packed": torch.cat([texf, texf[:, :1]], 1).contiguous()}[layout]
+    packed = layout == "packed"
+    flat = torch.from_numpy(rows * gather_bench.W + cols).to(cuda_device)
+    flat[:2] = torch.tensor([-7, 10 ** 8])
+    for k in range(4):
+        idx = flat[k:k + n]
+        got = gather_bench.texel_gather(table, idx, packed)
+        assert torch.equal(got, gather_bench.texel_gather_reference(table, idx, packed)), k
+        assert got.is_contiguous()
+    again = gather_bench.texel_gather(table, idx, packed)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
 @pytest.mark.parametrize("n", [5, 256, 1024, 4096, 4099, 9000])
 @pytest.mark.parametrize("row", [128, 4])
 @pytest.mark.parametrize("mechanism", ["tma", "cp_async"])
@@ -594,7 +631,7 @@ def test_probe_entry_points_count_launches(cuda_device):
     g = gather_bench.run(cuda_device, iters=2)
     o = overlap_probe.run(cuda_device, "all", width=128, height=64)
     assert all(k.launches > 0 for k in kernels)
-    assert t["max_rel_err"] < 1e-4
+    assert t["max_rel_err"] < 1e-4 and t["max_rel_err_wgmma"] < 1e-4
     assert all(g["correct"].values())
     assert all(o["p2"]["correct"].values()) and all(o["p3"]["correct"].values())
 

@@ -17,11 +17,18 @@ contracts, on the CPU.
 - K8a's ring of copies in flight and K8b's split of the queries into a
   scalar head, a vector body and a scalar tail, as Python models of the
   kernels' schedules.
+- K6's wgmma unit: a Python model of its fragment maps (A, the
+  accumulator, B's shared-memory tiles), of the quad sums and of the walk
+  of a persistent grid over the tiles, written as the kernel indexes
+  them, with the constants read from ``csrc/probes/trace_dots.cu``.
+- K7's split of the queries into a scalar head, a 4-wide body and a
+  scalar tail, and where its planar stores go 16 bytes at a time.
 - The three probe entry points on the CPU (``--backend torch``).
 """
 
 import importlib.util
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -133,6 +140,154 @@ def test_tf32_rounding():
     assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
 
 
+@pytest.mark.parametrize("unit", trace_probe.UNITS)
+def test_trace_dots_units_on_the_cpu_run_the_plain_version(trace_block, unit):
+    x, B, _ = trace_block
+    x, B = torch.from_numpy(x[:, :2, :64].copy()), torch.from_numpy(B)
+    assert torch.equal(trace_probe.trace_dots(x, B, unit),
+                       trace_probe.trace_dots_reference(x, B))
+
+
+@pytest.mark.parametrize("unit", ["mxu", "WGMMA", "tensor_cores", ""])
+def test_trace_dots_rejects_an_unknown_unit(unit):
+    with pytest.raises(ValueError, match="unit"):
+        trace_probe.trace_dots(torch.zeros((8, 4, 16)), torch.zeros((54, 8)), unit)
+
+
+def _trace_dots_source():
+    return (_build.PROBES.src_dir / "trace_dots.cu").read_text()
+
+
+def _wgmma_constants():
+    """The wgmma unit's shape, as its source states it: warpgroups a
+    block and pixels a tile (one tile in flight a warpgroup)."""
+    src = _trace_dots_source()
+    val = {name: int(re.search(rf"\b{name} = (\d+);", src).group(1))
+           for name in ("WG_PER_BLOCK", "TILE")}
+    assert "NPAD = 8 * NTILE" in src and "ND = NPAD / 2" in src
+    return val["WG_PER_BLOCK"], val["TILE"]
+
+
+def _wgmma_threads():
+    """(warp, lane, g, t, r) of the 128 threads of a warpgroup, as the
+    kernel derives them: rows r and r + 8 of a tile are its pixels."""
+    for warp in range(4):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            yield warp, lane, g, t, 16 * warp + g
+
+
+def _acc_cell(r, t, i):
+    """Accumulator register d[i] of the thread: d[4j + e] (row r, column
+    8j + 2t + e), d[4j + 2 + e] (row r + 8, the same column)."""
+    j, w = divmod(i, 4)
+    return r + 8 * (w >> 1), 8 * j + 2 * t + (w & 1)
+
+
+def _a_cell(r, t, i):
+    """A fragment register a[i]: a0 (r, k t), a1 (r + 8, t), a2 (r, t + 4),
+    a3 (r + 8, t + 4), as load_fragment fills them."""
+    return r + 8 * (i & 1), t + 4 * (i >> 1)
+
+
+def test_wgmma_fragment_maps_cover_each_cell_once():
+    _, tile = _wgmma_constants()
+    npad, nd = 8 * ((trace_probe.NCOL + 7) // 8), 28
+    assert (tile, npad) == (64, 56) and nd == npad // 2
+    acc = np.zeros((tile, npad), np.int64)
+    a = np.zeros((tile, trace_probe.NF), np.int64)
+    for _, _, _, t, r in _wgmma_threads():
+        for i in range(nd):
+            acc[_acc_cell(r, t, i)] += 1
+        for i in range(4):
+            a[_a_cell(r, t, i)] += 1
+    assert (acc == 1).all() and (a == 1).all()
+    # feature 0 of rows r and r + 8 is a0, a1 of the t = 0 threads only:
+    # the registers finish_segment rewrites
+    for _, _, _, t, r in _wgmma_threads():
+        zero = [i for i in range(4) if _a_cell(r, t, i)[1] == 0]
+        assert zero == ([0, 1] if t == 0 else [])
+
+
+def test_wgmma_quad_sums_and_u012():
+    """Each quad sums columns 3..53 once for both its rows, never the zero
+    columns 54, 55; the t = 0 lane, which keeps acc, holds U0, U1 itself
+    (d[0], d[1]; d[2], d[3] for row r + 8) and takes U2 from the t = 1
+    lane's d[0] (d[2]); feature 0 is re-split by _tf32's bit form."""
+    ncol = trace_probe.NCOL
+    for warp in range(4):
+        for g in range(8):
+            r = 16 * warp + g
+            for half, base in ((0, 0), (8, 2)):
+                cols = []
+                for t in range(4):
+                    for j in range(7):
+                        for e in range(2):
+                            col = 8 * j + 2 * t + e
+                            if 3 <= col < ncol:          # the kernel's test
+                                assert _acc_cell(r, t, 4 * j + base + e) == (r + half, col)
+                                cols.append(col)
+                assert sorted(cols) == list(range(3, ncol))
+                assert _acc_cell(r, 0, base) == (r + half, 0)        # U0
+                assert _acc_cell(r, 0, base + 1) == (r + half, 1)    # U1
+                assert _acc_cell(r, 1, base) == (r + half, 2)        # U2, lane + 1
+    src = _trace_dots_source()
+    body = src[src.index("void finish_segment"):src.index("void load_fragment")]
+    for want in ("__shfl_down_sync(full, d[0], 1)", "__shfl_down_sync(full, d[2], 1)",
+                 "acc_a = acc_a + d[0] * d[1] - u2a;", "acc_b = acc_b + d[2] * d[3] - u2b;",
+                 "__shfl_xor_sync(full, sa, 1)", "__shfl_xor_sync(full, sa, 2)"):
+        assert want in body
+    assert "return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;" in src
+
+
+def test_wgmma_b_tile_is_the_core_matrix_layout():
+    """B's (56, 8) K-major tile: b_offset puts each (column, feature) once
+    in 448 floats; a core matrix is 8 columns x 16 bytes, the next one
+    along K 128 bytes on (LBO), the next 8 columns 256 bytes on (SBO),
+    the strides the descriptor states."""
+    def b_offset(c, k):                      # as trace_dots.cu writes it
+        return (c >> 3) * 64 + (k >> 2) * 32 + (c & 7) * 4 + (k & 3)
+
+    src = _trace_dots_source()
+    assert "return (c >> 3) * 64 + (k >> 2) * 32 + (c & 7) * 4 + (k & 3);" in src
+    assert "((uint64_t)(128 >> 4) << 16)" in src and "((uint64_t)(256 >> 4) << 32)" in src
+    offs = np.array([[b_offset(c, k) for k in range(8)] for c in range(56)])
+    assert sorted(offs.ravel().tolist()) == list(range(56 * 8))
+    for c in range(56):
+        for k in range(8):
+            byte = 4 * offs[c, k]
+            assert byte == (c // 8) * 256 + (k // 4) * 128 + (c % 8) * 16 + (k % 4) * 4
+
+
+def _wgmma_stores(n, grid):
+    """How often the kernel stores each pixel: warpgroup w of block b
+    walks tiles b * WG + w, + grid * WG, ...; in a tile the t = 0 lane
+    stores rows r and r + 8, where the pixel is below n."""
+    WG, tile = _wgmma_constants()
+    in_tile = np.zeros(tile, np.int64)
+    for _, _, _, t, r in _wgmma_threads():
+        if t == 0:
+            in_tile[[r, r + 8]] += 1
+    assert (in_tile == 1).all()
+    tiles = -(-n // tile)
+    seen = np.zeros(n, np.int64)
+    pix = np.arange(tile)
+    for b in range(grid):
+        for w in range(WG):
+            for s in range(b * WG + w, tiles, grid * WG):
+                p = s * tile + pix
+                np.add.at(seen, p[p < n], 1)
+    return seen
+
+
+@pytest.mark.parametrize("n", [64 * 5, 64 * 8, 7 * 45, 720 * 1280])
+def test_wgmma_tile_walk_stores_each_pixel_once(n):
+    WG, tile = _wgmma_constants()
+    want = -(-(-(-n // tile)) // WG)         # launch_wgmma's grid, before the cap
+    for grid in sorted({1, 3, min(want, 132), want}):
+        assert (_wgmma_stores(n, grid) == 1).all(), grid
+
+
 def _race_inputs(seed=0):
     tex, rows, cols = gather_bench.bench_inputs(seed)
     flat = rows * gather_bench.W + cols
@@ -174,6 +329,76 @@ def test_gather_bench_inputs_distribution():
     assert rows.min() == 0 and rows.max() == 255
     assert cols.min() == 0 and cols.max() == 511
     assert 0.0 <= tex.min() and tex.max() < 1.0
+
+
+def _texel_vec():
+    """K7's queries a thread (the planar body's width), as its source
+    states it."""
+    src = (_build.PROBES.src_dir / "texel_gather.cu").read_text()
+    return int(re.search(r"\bV = (\d+);", src).group(1))
+
+
+def _texel_split(n, idx_offset):
+    """K7's split of n queries, as ``cprt_texel_gather`` makes it from the
+    byte offset of the indices modulo 16 (a planar out shares it): (head,
+    body, tail), a scalar head that aligns them to 16 bytes, a V-wide body
+    and a scalar tail."""
+    head = min(n, (16 - idx_offset % 16) % 16 // 4)
+    body = (n - head) // _texel_vec() * _texel_vec()
+    return head, body, n - head - body
+
+
+def _texel_cover(n, idx_offset, planes=3):
+    """How often K7's planar kernel stores each (plane, query), and
+    whether every 16-byte store is aligned: the grid has a thread for each
+    4-query chunk of the body (and at least one for each head query),
+    rounded up to blocks of 256; thread g takes chunk g, and the head and
+    the tail stride over the grid. out sits at idx's offset modulo 16
+    bytes, and plane c's store at query q is 16 bytes wide where (c n) %
+    4 == 0."""
+    vec = _texel_vec()
+    head, body, tail = _texel_split(n, idx_offset)
+    assert head + body + tail == n and body % vec == 0 and 0 <= tail < vec
+    threads = -(-max(body // vec, head, 1) // 256) * 256
+    seen = np.zeros((planes, n), np.int64)
+    for t in range(threads):
+        seen[:, t:head:threads] += 1
+        seen[:, head + body + t:n:threads] += 1
+    q = head + vec * np.arange(body // vec)             # thread g's chunk
+    for c in range(planes):
+        if c * n % 4 == 0:
+            assert ((idx_offset + 4 * (c * n + q)) % 16 == 0).all()
+        for e in range(vec):
+            seen[c, q + e] += 1
+    return head, seen
+
+
+@pytest.mark.parametrize("start", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 2048, 921600])
+def test_texel_split_covers_each_query_once(n, start):
+    """idx viewed from int32 ``start`` of its buffer."""
+    off = 4 * start
+    head, seen = _texel_cover(n, off)
+    assert (seen == 1).all()
+    assert head == min(n, (4 - start) % 4)          # the body starts aligned
+    assert (off + 4 * head) % 16 == 0 or head == n
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 127, 128, 129, 2048, 921600])
+def test_texel_packed_walk_covers_each_query_once(n):
+    """The packed kernel: a warp for each chunk of 32 * VEC queries, in
+    blocks of 8 warps; lane l takes the queries l + 32 k of its warp's
+    chunk, where below n; a warp's k-th store covers 32 consecutive
+    queries."""
+    vec = _texel_vec()
+    span = 32 * vec
+    warps = -(-(-(-n // span) * 32) // 256) * 8
+    seen = np.zeros(n, np.int64)
+    for w in range(warps):
+        for k in range(vec):
+            q = w * span + 32 * k + np.arange(32)            # one store of the warp
+            np.add.at(seen, q[q < n], 1)
+    assert (seen == 1).all()
 
 
 def _row_copy_serial(table, idx):
@@ -351,6 +576,8 @@ def test_trace_probe_entry_point_cpu(capsys):
     out = capsys.readouterr().out
     assert "ms/frame-equivalent" in out
     assert "max rel err tensor-core vs cuda-core: 0.000e+00" in out
+    assert "tensor core wgmma (3xTF32)" in out
+    assert "max rel err wgmma vs cuda-core: 0.000e+00" in out
 
 
 def test_gather_bench_entry_point_cpu(capsys):
