@@ -157,7 +157,33 @@ Phases, one line each; any failure raises and the exit code is not 0:
    counts set to 0 just before), the sharded step's ms and its gradient
    all-reduce's; then ``parallel.scaling.measure_scaling`` over worlds of
    1 and 2 ranks at the forward workload (two ranks on one card share it:
-   their efficiency measures contention and gloo's host staging).
+   their efficiency measures contention and gloo's host staging);
+17. the drivers of BASELINE configs 5 and 4 and of the headline metric,
+   run as a user runs them, each with the launch counts of kernels A, B,
+   C, D and G set to 0 just before it and read just after (C and D must
+   launch where the driver trains; a CUDA graph's replays are not
+   counted, its capture's warm-up run is): ``scripts.run_offline_4k.
+   run_offline`` at 3840x2160 x 1024 frames (phase 1 to frame 512 with a
+   checkpoint every 128, a fresh renderer resumed for the rest), its
+   accumulator bit-equal to one uninterrupted 1024-frame run without
+   checkpoints, finite, with a nonzero mean; its ms/frame, Mrays/s, wall
+   seconds of each phase and checkpoint save seconds, and the 4K frame's
+   device time with the stream kept full; kernel G on its accumulator by
+   phase 11's rules, and one 4K frame of kernels A and B against their
+   plain versions by phases 3 and 4's; ``scripts.inverse_env_demo.
+   inverse_env`` at its own size (256x144, spp 2, 3 bounces, every one of
+   the 131072 texels trained, 200 steps at K = 16), whose loss must fall
+   and whose parameters must be finite, with ms/step with the capture
+   included and at steady state and each material's albedo error; its
+   first step's gradients (A-D at spp 2, T > P) within 2e-2 relative L2
+   of the plain path's on the card, and the same 200 steps on the plain
+   path on the card, whose losses the kernels' must match within 1e-4
+   relative at every step and whose albedos within 1e-4; ``bench.
+   headline``, whose JSON line is printed (gradients finite); and the
+   training step at 720p, K = 16, with a ``gradient_sky(2048, 1024)`` env
+   (2097152 texels against 921600 pixels: config 3's T ~ P regime), timed
+   as the bench times it, and kernel D at its shapes (the 720p planes'
+   indices into the 2048x1024 env) by phase 7's rules.
 
 Then one JSON line with each kernel's numbers (times, launches on the
 main paths, and the bound: the larger of its bytes over 3.35 TB/s and
@@ -325,6 +351,133 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
             / want.double().norm()).item()
 
 
+def hold_planes(planes, ref, what: str) -> tuple:
+    """Kernel A's planes against the plain version's (phase 3's glass
+    rule): the rgb and miss-throughput means within 1e-2 relative and
+    under 0.1% of pixels off by > 1e-3, and under 0.1% of pixels off on
+    each of the 12 planes; returns (share off by plane, the worst)."""
+    from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
+        PLANE_NAMES,
+        plane_mismatch,
+    )
+
+    for c in (0, 1, 2, 6, 7, 8):
+        robust(planes[c], ref[c], f"{what} {PLANE_NAMES[c]}", 1e-3)
+    off = plane_mismatch(planes, ref)
+    worst = max(off, key=off.get)
+    if off[worst] >= 1e-3:
+        raise AssertionError(f"{what} planes: {off}")
+    return off, worst
+
+
+def hold_env_accumulate(planes, planes_ref, tex, cfg, accum0, blend,
+                        what: str) -> tuple:
+    """Kernel B against its plain version on kernel A's planes (phase 4's
+    rule): texel indices equal on >= 99.9% of pixels, the accumulator
+    allclose (rtol 1e-5) where they are; then A -> B against plain A ->
+    plain B, under 0.1% of pixels off by > 1e-3. Returns (share of
+    indices equal, max abs err, share of pixels off in the chain, the
+    kernel's indices)."""
+    from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import (
+        env_accumulate,
+        env_accumulate_reference,
+    )
+
+    got, want = accum0.clone(), accum0.clone()
+    gi = torch.empty(planes.shape[1:], dtype=torch.int64, device=planes.device)
+    wi = torch.empty_like(gi)
+    env_accumulate(planes, tex, cfg, got, blend, index_out=gi)
+    env_accumulate_reference(planes, tex, cfg, want, blend, index_out=wi)
+    torch.cuda.synchronize()
+    same = gi == wi
+    same_share = same.double().mean().item()
+    if same_share < 0.999:
+        raise AssertionError(f"{what}: indices equal on {same_share:.4%}")
+    torch.testing.assert_close(got[:, same], want[:, same], rtol=1e-5, atol=0)
+    err = (got[:, same] - want[:, same]).abs().max().item()
+    # the chain: kernel A's planes through kernel B vs the plain chain
+    chain_ref = accum0.clone()
+    env_accumulate_reference(planes_ref, tex, cfg, chain_ref, blend)
+    chain_off = max(robust(got[c], chain_ref[c], f"{what} chain A->B "
+                           f"channel {c}", 1e-3) for c in range(3))
+    return same_share, err, chain_off, gi
+
+
+def hold_env_backward(g, idx, mt, tex, what: str) -> dict:
+    """Kernel D against its plain version and a float64 texel sum (phase
+    7's rule): cot_mt exactly equal, two calls bit-equal, each texel's sum
+    of k values within (k - 1) * 2^-24 * sum|v| (at least 8 * 2^-24 *
+    sum|v|) of a float64 index_add_. Returns the max abs error, the worst
+    error over its bound, the texel sums over 4 * 2^-23 * sum|v| here and
+    with index_add_, and the flat indices, values and counts."""
+    from cpuperformanceraytracer_tpu_torch.kernels.env_backward import (
+        env_backward,
+        env_backward_reference,
+    )
+
+    dev = g.device
+    cot, d_tex = env_backward(g, idx, mt, tex)
+    cot_want, _ = env_backward_reference(g, idx, mt, tex)
+    _, again = env_backward(g, idx, mt, tex)
+    torch.cuda.synchronize()
+    if not torch.equal(cot, cot_want):
+        raise AssertionError(f"{what}: cot_mt differs from the plain version")
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(d_tex, again)):
+        raise AssertionError(f"{what}: two calls differ")
+    n_tex = tex.width * tex.height
+    flat = idx.reshape(-1)
+    vals = (g * mt).reshape(3, -1).t().contiguous()
+    library = torch.zeros((n_tex, 3), device=dev).index_add_(0, flat, vals)
+    count = torch.bincount(flat, minlength=n_tex).double()
+    # a sum of k f32 terms in any order is within (k - 1) * 2^-24 * sum|v|
+    # of the exact sum (at least the fixed 4 * 2^-23 * sum|v| is allowed),
+    # plus 2^-126 per add: f32 atomics flush subnormals to zero
+    allow = torch.clamp(count - 1.0, min=8.0) * 2.0 ** -24
+    ftz = 2.0 * count * 2.0 ** -126
+    max_err, worst, over_fixed, lib_over = 0.0, 0.0, 0, 0
+    for c in range(3):
+        v = vals[:, c].double()
+        exact = torch.zeros(n_tex, dtype=torch.float64, device=dev)
+        exact.index_add_(0, flat, v)
+        mag = torch.zeros_like(exact).index_add_(0, flat, v.abs())
+        err = (d_tex[c].double() - exact).abs()
+        if (err > allow * mag + ftz).any():
+            raise AssertionError(f"{what} channel {c}: a texel sum is off "
+                                 f"by more than (k - 1) * 2^-24 * sum|v|")
+        max_err = max(max_err, err.max().item())
+        hit = mag > 0
+        worst = max(worst, (err[hit] / (allow * mag + ftz)[hit]).max().item())
+        fixed = 4 * 2.0 ** -23 * mag
+        over_fixed += int((err > fixed).sum())
+        lib_over += int(((library[:, c].double() - exact).abs() > fixed).sum())
+    return dict(max_err=max_err, worst=worst, over_fixed=over_fixed,
+                library_over_fixed=lib_over, flat=flat, vals=vals, count=count)
+
+
+def hold_tonemap(acc, what: str) -> tuple:
+    """Kernel G against its plain version on ``acc`` (phase 11's rule): f32
+    within rtol 1e-5, u8 equal on >= 99.99% of values and never off by
+    more than 1. Returns (max abs err, share of u8 equal, max u8 off)."""
+    from cpuperformanceraytracer_tpu_torch.core.color import to_u8
+    from cpuperformanceraytracer_tpu_torch.core.vecmath import Vec3
+    from cpuperformanceraytracer_tpu_torch.kernels.tonemap import (
+        tonemap,
+        tonemap_reference,
+    )
+
+    got, want = tonemap(acc, 1.0), tonemap_reference(acc, 1.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0,
+                               msg=lambda m: f"kernel G {what}: {m}")
+    d = (to_u8(Vec3(*got)).int() - to_u8(Vec3(*want)).int()).abs()
+    eq = (d == 0).double().mean().item()
+    if eq < 0.9999 or d.max().item() > 1:
+        raise AssertionError(f"kernel G {what}: u8 equal on {eq:.5%}, "
+                             f"max off {d.max().item()}")
+    return (got - want).abs().max().item(), eq, d.max().item()
+
+
 def beer_scene(dev):
     """One glass sphere every path refracts through (refraction chance 1,
     no specular) over a grey floor: decision-stable, with sphere and
@@ -467,41 +620,10 @@ def phase_kernel_d(dev, planes, idx, tex) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     g = torch.randn((3,) + tuple(idx.shape), device=dev, generator=gen)
     mt = planes[6:9]
-    cot, d_tex = env_backward(g, idx, mt, tex)
-    cot_want, _ = env_backward_reference(g, idx, mt, tex)
-    _, again = env_backward(g, idx, mt, tex)
-    torch.cuda.synchronize()
-    if not torch.equal(cot, cot_want):
-        raise AssertionError("kernel D: cot_mt differs from the plain version")
-    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-               for a, b in zip(d_tex, again)):
-        raise AssertionError("kernel D: two calls differ")
+    held = hold_env_backward(g, idx, mt, tex, "kernel D")
+    max_err, worst, count = held["max_err"], held["worst"], held["count"]
+    flat, vals = held["flat"], held["vals"]
     n_tex = tex.width * tex.height
-    flat = idx.reshape(-1)
-    vals = (g * mt).reshape(3, -1).t().contiguous()
-    library = torch.zeros((n_tex, 3), device=dev).index_add_(0, flat, vals)
-    count = torch.bincount(flat, minlength=n_tex).double()
-    # a sum of k f32 terms in any order is within (k - 1) * 2^-24 * sum|v|
-    # of the exact sum (at least the fixed 4 * 2^-23 * sum|v| is allowed),
-    # plus 2^-126 per add: f32 atomics flush subnormals to zero
-    allow = torch.clamp(count - 1.0, min=8.0) * 2.0 ** -24
-    ftz = 2.0 * count * 2.0 ** -126
-    max_err, worst, over_fixed, lib_over = 0.0, 0.0, 0, 0
-    for c in range(3):
-        v = vals[:, c].double()
-        exact = torch.zeros(n_tex, dtype=torch.float64, device=dev)
-        exact.index_add_(0, flat, v)
-        mag = torch.zeros_like(exact).index_add_(0, flat, v.abs())
-        err = (d_tex[c].double() - exact).abs()
-        if (err > allow * mag + ftz).any():
-            raise AssertionError(f"kernel D channel {c}: a texel sum is off "
-                                 f"by more than (k - 1) * 2^-24 * sum|v|")
-        max_err = max(max_err, err.max().item())
-        hit = mag > 0
-        worst = max(worst, (err[hit] / (allow * mag + ftz)[hit]).max().item())
-        fixed = 4 * 2.0 ** -23 * mag
-        over_fixed += int((err > fixed).sum())
-        lib_over += int(((library[:, c].double() - exact).abs() > fixed).sum())
     nonzero = (vals != 0).any(1)
     busiest_nz = int(torch.bincount(flat[nonzero], minlength=n_tex).max())
     ms = cuda_ms(lambda: env_backward(g, idx, mt, tex), 200)
@@ -539,7 +661,8 @@ def phase_kernel_d(dev, planes, idx, tex) -> dict:
           f"(k-1)*2^-24*sum|v| bound (max abs err {max_err:.3g}; busiest "
           f"texel {int(count.max())} pixels, {busiest_nz} with a nonzero "
           f"addend ({int(nonzero.sum())} of {n_px} pixels); texel sums over "
-          f"4*2^-23*sum|v|: {over_fixed} here, {lib_over} with index_add_); "
+          f"4*2^-23*sum|v|: {held['over_fixed']} here, "
+          f"{held['library_over_fixed']} with index_add_); "
           f"{ms:.4f} ms "
           f"vs plain {plain_ms:.4f} ms vs index_add_ {library_ms:.4f} ms; "
           f"held full {held_ms:.4f} ms vs deterministic index_put_ "
@@ -918,29 +1041,13 @@ def phase_kernel_f(dev) -> float:
 
 def phase_kernel_g(dev, accum720) -> float:
     """Phase 11: kernel G vs its plain version, in f32 and in u8."""
-    from cpuperformanceraytracer_tpu_torch.core.color import to_u8
-    from cpuperformanceraytracer_tpu_torch.core.vecmath import Vec3
-    from cpuperformanceraytracer_tpu_torch.kernels.tonemap import (
-        tonemap,
-        tonemap_reference,
-    )
-
     gen = torch.Generator(device=dev).manual_seed(4)
     seeded = torch.rand((3, 1080, 1920), device=dev, generator=gen) * 8.0
     seeded[:, 0, :4] = torch.tensor([0.0, 1e-12, 1e-3, 50.0], device=dev)
     err, worst_eq, worst_d = 0.0, 1.0, 0
     for name, acc in (("seeded 1080p", seeded), ("main path 720p", accum720)):
-        got, want = tonemap(acc, 1.0), tonemap_reference(acc, 1.0)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=0,
-                                   msg=lambda m: f"kernel G {name}: {m}")
-        d = (to_u8(Vec3(*got)).int() - to_u8(Vec3(*want)).int()).abs()
-        eq = (d == 0).double().mean().item()
-        if eq < 0.9999 or d.max().item() > 1:
-            raise AssertionError(f"kernel G {name}: u8 equal on {eq:.5%}, "
-                                 f"max off {d.max().item()}")
-        err = max(err, (got - want).abs().max().item())
-        worst_eq, worst_d = min(worst_eq, eq), max(worst_d, d.max().item())
+        e, eq, d = hold_tonemap(acc, name)
+        err, worst_eq, worst_d = max(err, e), min(worst_eq, eq), max(worst_d, d)
     phase("kernel G", f"f32 rtol 1e-5 (max abs err {err:.3g}); u8 equal on "
           f">= {worst_eq:.5%} of values, max off {worst_d}")
     return err
@@ -1754,6 +1861,236 @@ def phase_parallel(dev, scene, cam, tex, cfg, gpu) -> dict:
     return dict(window_ms=win, world2=w, seconds=secs)
 
 
+def phase_drivers(dev, gpu) -> dict:
+    """Phase 17: the drivers of configs 5 and 4, the headline bench and
+    the T ~ P training step (see the module docstring)."""
+    import os
+
+    from cpuperformanceraytracer_tpu_torch import bench
+    from cpuperformanceraytracer_tpu_torch.config import BENCH_CONFIGS
+    from cpuperformanceraytracer_tpu_torch.diff.benchgrad import fwd_bwd_benchmark
+    from cpuperformanceraytracer_tpu_torch.diff.grad import (
+        loss_and_grad,
+        render_for_params,
+    )
+    from cpuperformanceraytracer_tpu_torch.kernels.backward import bwd_tables
+    from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
+    from cpuperformanceraytracer_tpu_torch.kernels.env_backward import env_backward
+    from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
+        pack_tables,
+        render_planes,
+        render_planes_reference,
+    )
+    from cpuperformanceraytracer_tpu_torch.kernels.tonemap import tonemap
+    from cpuperformanceraytracer_tpu_torch.render.driver import OfflineRenderer
+    from cpuperformanceraytracer_tpu_torch.render.frame import frame_blend
+    from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
+    from cpuperformanceraytracer_tpu_torch.scripts.inverse_env_demo import (
+        DEMO,
+        initial_params,
+        inverse_env,
+    )
+    from cpuperformanceraytracer_tpu_torch.scripts.run_offline_4k import (
+        run_offline,
+    )
+    from cpuperformanceraytracer_tpu_torch.texture.procedural import gradient_sky
+    from cpuperformanceraytracer_tpu_torch.texture.texture import texture_from_array
+
+    kernels = {"render_planes": render_planes, "env_accumulate": env_accumulate,
+               "bwd_tables": bwd_tables, "env_backward": env_backward,
+               "tonemap": tonemap}
+
+    def counted(path, fn, need):
+        """``fn()`` with the kernels' launch counts set to 0 just before it
+        and read just after; every kernel in ``need`` must have launched."""
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in kernels.items()}
+        if not all(launches[n] > 0 for n in need):
+            raise AssertionError(f"{path}: launches {launches}, need {need}")
+        return out, launches
+
+    sky = gradient_sky(512, 256)
+    tex = texture_from_array(sky)
+    tex_dev = texture_from_array(sky, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    launches, held = {}, {}
+
+    # config 5: 4K x 1024 frames, a checkpoint every 128, resumed
+    cfg = BENCH_CONFIGS["offline_4k"]
+    t0 = time.perf_counter()
+    (off, state), launches["offline_4k"] = counted(
+        "offline_4k", lambda: run_offline(
+            cfg, tex, os.path.join(OUT_DIR, "offline_4k.png")),
+        ("render_planes", "env_accumulate", "tonemap"))
+    wall = time.perf_counter() - t0
+    whole = OfflineRenderer(cfg, texture=tex, silent=True)
+    whole.run()
+    if not torch.equal(state.accum, whole.accum):
+        raise AssertionError("offline_4k: the resumed accumulator differs "
+                             "from the uninterrupted run's")
+    if state.frame != cfg.num_frames or not torch.isfinite(state.accum).all() \
+            or state.accum.mean().item() <= 0.0:
+        raise AssertionError(f"offline_4k: frame {state.frame}, accum mean "
+                             f"{state.accum.mean().item()}")
+    # kernel G on the 4K accumulator; kernels A and B on one 4K frame
+    held["G_4k"] = dict(zip(("max_abs_err", "u8_equal", "u8_max_off"),
+                            hold_tonemap(state.accum, "offline_4k accumulator")))
+    del state, whole
+    scene, cam = scene_by_name(cfg.scene, device=dev)
+    tables = pack_tables(scene, cam, cfg, dev)
+    planes = render_planes(tables, cfg, 1)
+    planes_ref = render_planes_reference(tables, cfg, 1)
+    off4k, worst = hold_planes(planes, planes_ref, "kernel A 4K")
+    accum0 = torch.rand((3, cfg.height, cfg.width), device=dev,
+                        generator=gen) * 3.0
+    same, err_b, chain_off, _ = hold_env_accumulate(
+        planes, planes_ref, tex_dev, cfg, accum0, frame_blend(3),
+        "kernel B 4K")
+    held["A_4k"] = {"worst_plane": worst, "share_off": off4k[worst],
+                    "missed_share_off": off4k["missed"],
+                    "rgb_max_abs_err": (planes[:3] - planes_ref[:3])
+                    .abs().max().item()}
+    held["B_4k"] = {"indices_equal": same, "max_abs_err": err_b,
+                    "chain_share_off": chain_off}
+    del planes, planes_ref, accum0
+    off["device_busy_ms_per_frame"] = device_frame_ms(
+        OfflineRenderer(cfg, texture=tex, silent=True).step, 32)
+    off["idle_share"] = 1.0 - off["device_busy_ms_per_frame"] / off["ms_per_frame"]
+    off["seconds"] = wall
+    phase("drivers", f"offline_4k {cfg.width}x{cfg.height} x "
+          f"{off['frames_total']} frames, "
+          f"resumed at {off['resumed_at_frame']}, bit-equal to one "
+          f"uninterrupted run: {off['ms_per_frame']:.4f} ms/frame, "
+          f"{off['Mrays_per_s']:.1f} Mrays/s, device busy "
+          f"{off['device_busy_ms_per_frame']:.4f} ms/frame (idle share "
+          f"{off['idle_share']:.4f}); wall {off['wall_s_phase1']:.2f} + "
+          f"{off['wall_s_phase2']:.2f} s, checkpoint saves "
+          f"{off['checkpoint_save_s']:.2f} s; launches "
+          f"{launches['offline_4k']}; one 4K frame: A vs plain (worst "
+          f"{worst} {off4k[worst]:.5%} px off), B indices equal on "
+          f"{same:.5%}, A->B vs plain chain {chain_off:.5%} px off; G on the "
+          f"4K accumulator max abs err {held['G_4k']['max_abs_err']:.3g}, u8 "
+          f"equal on {held['G_4k']['u8_equal']:.5%}; GPU {gpu}")
+
+    # config 4: albedos and all 131072 texels at 256x144, 200 steps
+    inv, launches["env_inverse"] = counted(
+        "env_inverse", lambda: inverse_env(DEMO, tex),
+        ("render_planes", "env_accumulate", "bwd_tables", "env_backward"))
+    if not (inv["loss_last"] < inv["loss_first"] and inv["params_finite"]):
+        raise AssertionError(f"env inverse: loss {inv['loss_first']} -> "
+                             f"{inv['loss_last']}, finite "
+                             f"{inv['params_finite']}")
+    # one step's gradients at the demo's start (A-D at spp 2, 3 bounces,
+    # T > P) against the plain path's on the card, phase 8's rule
+    scene, cam = scene_by_name(DEMO.scene, device=dev)
+    init = initial_params(scene, tex_dev)
+    with torch.no_grad():
+        target = render_for_params({}, scene, cam, tex_dev, DEMO, 0)
+    _, got = loss_and_grad(init, target, scene, cam, tex_dev, DEMO, 0)
+    _, want = loss_and_grad(init, target, scene, cam, tex_dev,
+                            DEMO.replace(backend="torch"), 0)
+    held["inverse_grads_rel_l2"] = {n: rel_l2(got[n], want[n]) for n in init}
+    if max(held["inverse_grads_rel_l2"].values()) >= 2e-2 or not all(
+            torch.isfinite(v).all() and v.norm() > 0 for v in got.values()):
+        raise AssertionError(f"env inverse gradients vs plain path: "
+                             f"{held['inverse_grads_rel_l2']}")
+    del got, want
+    # the same 200 steps on the plain path on the card
+    plain = inverse_env(DEMO.replace(backend="torch"), tex, warm_chunks=0,
+                        timed_chunks=1, device=dev)
+    if not (plain["loss_last"] < plain["loss_first"]
+            and plain["params_finite"]):
+        raise AssertionError(f"env inverse, plain path: loss "
+                             f"{plain['loss_first']} -> {plain['loss_last']}")
+    loss_dev = max(abs(a - b) / abs(b) for a, b in zip(inv["losses"],
+                                                       plain["losses"]))
+    albedo_dev = (inv["params"]["albedo"] - plain["params"]["albedo"]
+                  ).abs().max().item()
+    if not (loss_dev < 1e-4 and albedo_dev < 1e-4):
+        raise AssertionError(f"env inverse: the kernels' 200 steps leave the "
+                             f"plain path's: losses within {loss_dev:.3e} "
+                             f"relative, albedos within {albedo_dev:.3e}")
+    held["inverse_vs_plain_path"] = {
+        "loss_max_rel_dev": loss_dev, "albedo_max_abs_dev": albedo_dev,
+        "plain_loss_last": plain["loss_last"],
+        "plain_albedo_err_by_material": plain["albedo_err_by_material"],
+        "plain_ms_per_step_incl_compile": plain["ms_per_step_incl_compile"]}
+    inv = {k: v for k, v in inv.items() if k not in ("params", "losses")}
+    phase("drivers", f"env inverse {inv['config']}, {inv['steps']} steps at "
+          f"K = {inv['steps_per_dispatch']}: loss {inv['loss_first']:.6f} -> "
+          f"{inv['loss_last']:.6f}, albedo max err "
+          f"{inv['albedo_max_err']:.4f}, finite; "
+          f"{inv['ms_per_step_incl_compile']:.4f} ms/step with the capture, "
+          f"{inv['ms_per_step_steady']:.4f} at steady state; launches "
+          f"{launches['env_inverse']}; albedo err by material "
+          + ", ".join(f"{e:.4f}" for e in inv["albedo_err_by_material"])
+          + "; one step's gradients vs plain path relative L2 "
+          + ", ".join(f"{n} {v:.3e}" for n, v in
+                      held["inverse_grads_rel_l2"].items())
+          + f"; the plain path's 200 steps: loss -> {plain['loss_last']:.6f}"
+          f", albedo err by material "
+          + ", ".join(f"{e:.4f}" for e in plain["albedo_err_by_material"])
+          + f"; kernels vs plain path: losses within {loss_dev:.3e} "
+          f"relative, albedos within {albedo_dev:.3e}")
+    del plain
+
+    # the headline: bench.py's line
+    head, launches["headline"] = counted(
+        "headline", lambda: bench.headline(bench.HEADLINE, tex),
+        ("render_planes", "env_accumulate", "bwd_tables", "env_backward"))
+    if not head["fwd_bwd_grads_finite"]:
+        raise AssertionError(f"headline: gradients not finite: {head}")
+    print(json.dumps(head), flush=True)
+    phase("drivers", f"headline: {head['value']:.1f} Mrays/s forward, "
+          f"{head['fwd_bwd_ms_per_step']:.4f} ms/step fwd+bwd; launches "
+          f"{launches['headline']}")
+
+    # config 3's regime: T ~ P (a 2048x1024 env at 720p)
+    big = texture_from_array(gradient_sky(2048, 1024), dev)
+    tcfg = bench.HEADLINE.replace(rng="counter", num_frames=1)
+    scene, cam = scene_by_name(tcfg.scene, device=dev)
+    tp, launches["t_eq_p_step"] = counted(
+        "t_eq_p_step", lambda: fwd_bwd_benchmark(
+            tcfg, scene, cam, big, steps=STEPS,
+            steps_per_dispatch=STEPS_PER_DISPATCH),
+        ("render_planes", "env_accumulate", "bwd_tables", "env_backward"))
+    if not tp["grads_finite"]:
+        raise AssertionError("T ~ P step: gradients not finite")
+    # kernel D at T ~ P: the 720p planes' texel indices into the 2k env
+    tables = pack_tables(scene, cam, tcfg, dev)
+    planes = render_planes(tables, tcfg, 1)
+    idx = torch.empty((tcfg.height, tcfg.width), dtype=torch.int64,
+                      device=dev)
+    env_accumulate(planes, big, tcfg,
+                   torch.zeros((3, tcfg.height, tcfg.width), device=dev),
+                   frame_blend(0), index_out=idx)
+    g = torch.randn((3, tcfg.height, tcfg.width), device=dev, generator=gen)
+    d = hold_env_backward(g, idx, planes[6:9], big, "kernel D T ~ P")
+    held["D_t_eq_p"] = {"max_abs_err": d["max_err"],
+                        "worst_over_bound": d["worst"],
+                        "over_fixed": d["over_fixed"],
+                        "library_over_fixed": d["library_over_fixed"]}
+    del planes, d
+    tp["texels"], tp["pixels"] = big.width * big.height, tcfg.width * tcfg.height
+    phase("drivers", f"T ~ P step ({tcfg.width}x{tcfg.height}, env "
+          f"{big.width}x{big.height}: {tp['texels']} texels, {tp['pixels']} "
+          f"pixels), K = {tp['steps_per_dispatch']}: "
+          f"{tp['ms_per_step']:.4f} ms/step ({tp['Mrays_per_s']:.1f} Mrays/s; "
+          f"spans {tp['span_ms']}; headline env 512x256: "
+          f"{head['fwd_bwd_ms_per_step']:.4f}); launches "
+          f"{launches['t_eq_p_step']}; kernel D at these shapes: cot_mt "
+          f"equal, two calls bit-equal, texel sums within "
+          f"{held['D_t_eq_p']['worst_over_bound']:.3g} of the "
+          f"(k-1)*2^-24*sum|v| bound (max abs err "
+          f"{held['D_t_eq_p']['max_abs_err']:.3g})")
+    tp.pop("param_leaves")
+    return dict(offline_4k=off, env_inverse=inv, headline=head,
+                t_eq_p_step=tp, launches=launches, held=held)
+
+
 def phase_held_times(dev, planes, idx, tex, cfg, accum) -> dict:
     """Phase 14, last: small kernels timed back to back and held full."""
     from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
@@ -1794,9 +2131,7 @@ def main() -> int:
         env_accumulate_reference,
     )
     from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
-        PLANE_NAMES,
         pack_tables,
-        plane_mismatch,
         render_planes,
         render_planes_reference,
         resident_blocks,
@@ -1848,12 +2183,7 @@ def main() -> int:
     planes_ref = render_planes_reference(tables, cfg, 0, live_segments=live_a,
                                          live_masks=masks_a)
     torch.cuda.synchronize()
-    for c in (0, 1, 2, 6, 7, 8):
-        robust(planes[c], planes_ref[c], f"kernel A {PLANE_NAMES[c]}", 1e-3)
-    off = plane_mismatch(planes, planes_ref)
-    worst = max(off, key=off.get)
-    if off[worst] >= 1e-3:
-        raise AssertionError(f"kernel A planes: {off}")
+    off, worst = hold_planes(planes, planes_ref, "kernel A")
     glass_err = (planes[:3] - planes_ref[:3]).abs().max().item()
     ms_a = cuda_ms(lambda: render_planes(tables, cfg, 0), 20)
     plain_ms_a = cuda_ms(lambda: render_planes_reference(tables, cfg, 0), 3, 1)
@@ -1876,23 +2206,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     accum0 = torch.rand((3, 720, 1280), device=dev, generator=gen) * 3.0
     blend = frame_blend(3)
-    got, want = accum0.clone(), accum0.clone()
-    gi = torch.empty((720, 1280), dtype=torch.int64, device=dev)
-    wi = torch.empty_like(gi)
-    env_accumulate(planes, tex, cfg, got, blend, index_out=gi)
-    env_accumulate_reference(planes, tex, cfg, want, blend, index_out=wi)
-    torch.cuda.synchronize()
-    same = gi == wi
-    same_share = same.double().mean().item()
-    if same_share < 0.999:
-        raise AssertionError(f"kernel B: indices equal on {same_share:.4%}")
-    torch.testing.assert_close(got[:, same], want[:, same], rtol=1e-5, atol=0)
-    err_b = (got[:, same] - want[:, same]).abs().max().item()
-    # the chain: kernel A's planes through kernel B vs the plain chain
-    chain_ref = accum0.clone()
-    env_accumulate_reference(planes_ref, tex, cfg, chain_ref, blend)
-    chain_off = max(robust(got[c], chain_ref[c], f"chain A->B channel {c}",
-                           1e-3) for c in range(3))
+    same_share, err_b, chain_off, gi = hold_env_accumulate(
+        planes, planes_ref, tex, cfg, accum0, blend, "kernel B")
     scratch = accum0.clone()
     ms_b = cuda_ms(lambda: env_accumulate(planes, tex, cfg, scratch, blend), 200)
     plain_ms_b = cuda_ms(
@@ -1967,6 +2282,9 @@ def main() -> int:
     # ---- phase 16: the parallel layer, windows, native codec, trace -------
     par = phase_parallel(dev, scene, cam, tex, cfg, gpu)
 
+    # ---- phase 17: the drivers of configs 5 and 4, the headline ----------
+    drv = phase_drivers(dev, gpu)
+
     # ---- the kernels' numbers ---------------------------------------------
     n_px = cfg.width * cfg.height
     tex_bytes = 3 * 4 * tex.width * tex.height
@@ -1975,6 +2293,11 @@ def main() -> int:
     # kernel B as timed: 11 planes read, the accumulator read and written,
     # the texture read once
     bound_b = bound((11 + 6) * 4 * n_px + tex_bytes, 10 * n_px)
+
+    def drv_launches(kernel: str) -> dict:
+        """A kernel's launches on each driver of phase 17."""
+        return {path: n[kernel] for path, n in drv["launches"].items()}
+
     rows = [
         dict(name="megakernel",
              source="cpuperformanceraytracer_tpu_torch/csrc/megakernel.cu",
@@ -1984,7 +2307,8 @@ def main() -> int:
              launches_by_path={"forward": launches["render_planes"],
                                "training": t["launches"]["render_planes"],
                                "training_k1": t["launches_k1"]["render_planes"],
-                               "sharded_2_ranks": par["world2"]["launches"]["render_planes"]},
+                               "sharded_2_ranks": par["world2"]["launches"]["render_planes"],
+                               **drv_launches("render_planes")},
              window={"row0": 360, "local_height": 360,
                      "held_ms": par["window_ms"]["A_window"],
                      "full_held_ms": par["window_ms"]["A_full"]},
@@ -1999,14 +2323,16 @@ def main() -> int:
              launches_by_path={"forward": launches["env_accumulate"],
                                "training": t["launches"]["env_accumulate"],
                                "training_k1": t["launches_k1"]["env_accumulate"],
-                               "sharded_2_ranks": par["world2"]["launches"]["env_accumulate"]}),
+                               "sharded_2_ranks": par["world2"]["launches"]["env_accumulate"],
+                               **drv_launches("env_accumulate")}),
         dict(name="bwd_tables",
              source="cpuperformanceraytracer_tpu_torch/csrc/backward.cu",
              replaces="cpuperformanceraytracer_tpu/kernels/backward.py:230",
              launches=t["launches"]["bwd_tables"],
              launches_by_path={"training": t["launches"]["bwd_tables"],
                                "training_k1": t["launches_k1"]["bwd_tables"],
-                               "sharded_2_ranks": par["world2"]["launches"]["bwd_tables"]},
+                               "sharded_2_ranks": par["world2"]["launches"]["bwd_tables"],
+                               **drv_launches("bwd_tables")},
              window={"row0": 360, "local_height": 360,
                      "held_ms": par["window_ms"]["C_window"],
                      "full_held_ms": par["window_ms"]["C_full"]},
@@ -2017,7 +2343,8 @@ def main() -> int:
              launches=t["launches"]["env_backward"],
              launches_by_path={"training": t["launches"]["env_backward"],
                                "training_k1": t["launches_k1"]["env_backward"],
-                               "sharded_2_ranks": par["world2"]["launches"]["env_backward"]},
+                               "sharded_2_ranks": par["world2"]["launches"]["env_backward"],
+                               **drv_launches("env_backward")},
              **d),
         dict(name="env_gather",
              source="cpuperformanceraytracer_tpu_torch/csrc/env_gather.cu",
@@ -2034,6 +2361,8 @@ def main() -> int:
              source="cpuperformanceraytracer_tpu_torch/csrc/tonemap.cu",
              replaces="cpuperformanceraytracer_tpu/kernels/tonemap.py:46",
              launches=x["launches"]["tonemap"], max_abs_err=err_g,
+             launches_by_path={"textured": x["launches"]["tonemap"],
+                               **drv_launches("tonemap")},
              **x["g"]),
         *probe_rows,
     ]
@@ -2048,7 +2377,8 @@ def main() -> int:
                                     "warmup": WARMUP},
                       "training_path": t["summary"],
                       "textured_path": x["summary"],
-                      "oracle": o, "probes": probes, "parallel": par}))
+                      "oracle": o, "probes": probes, "parallel": par,
+                      "drivers": drv}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 ``inverse``.
 
     python -m cpuperformanceraytracer_tpu_torch.app.cli render \\
-        --scene glass_spheres --width 1280 --height 720 --frames 64 \\
+        --scene glass_spheres --width 1280 --height 720 --frames 600 \\
         --bounces 8 --env procedural -o out.png
     python -m cpuperformanceraytracer_tpu_torch.app.cli watch --interval 8
     python -m cpuperformanceraytracer_tpu_torch.app.cli bench textured_1080
@@ -25,9 +25,13 @@ recovers perturbed albedos and sphere centers by Adam, logs the loss
 every 10 steps on stderr (unless ``--silent``) and prints the loss before
 and after. The two gradient commands use the counter RNG.
 
-``--env`` is ``none`` (constant ambient), ``procedural`` (a 512x256
-gradient sky) or a path to a Radiance .hdr equirect map; ``--cubemap``
-takes six .hdr faces (px nx py ny pz nz) instead. ``--backend cuda`` (the
+The options and their defaults are the JAX package's CLI's. With no
+``--env`` (or ``--env none``) the miss radiance is the constant ambient;
+``--env procedural`` is a 512x256 gradient sky, any other value a path to
+a Radiance .hdr equirect map; ``--cubemap`` takes six .hdr faces (px nx
+py ny pz nz) instead. ``--roulette`` is ``v4_quirk`` (the default),
+``terminate`` or ``off``; ``render`` and ``watch`` run 600 frames unless
+``--frames`` says otherwise. ``--backend cuda`` (the
 default) runs the CUDA kernels on the GPU; ``--backend torch`` the
 plain-torch versions on the CPU; ``--backend oracle`` the oracle
 integrator on the CPU (``render/integrator.py``; on ``bench-grad`` with
@@ -61,7 +65,7 @@ def _texture(a, device):
 
     if a.cubemap:
         return load_cubemap_texture(a.cubemap, device)
-    if a.env == "none":
+    if a.env in (None, "none"):
         return None
     if a.env == "procedural":
         return texture_from_array(gradient_sky(512, 256), device)
@@ -70,11 +74,11 @@ def _texture(a, device):
 
 def _cfg(a, **kw) -> RenderConfig:
     env_mode = ("cubemap" if a.cubemap
-                else "none" if a.env == "none" else "equirect")
+                else "none" if a.env in (None, "none") else "equirect")
     return RenderConfig(
         width=a.width, height=a.height, bounces=a.bounces, spp=a.spp,
         scene=a.scene, env_mode=env_mode, env_sampling=a.env_sampling,
-        backend=a.backend, **kw).validate()
+        roulette=a.roulette, backend=a.backend, **kw).validate()
 
 
 def _render_cfg(a) -> RenderConfig:
@@ -192,11 +196,10 @@ BENCH_SKY = {"textured_1080": (2048, 1024)}
 def cmd_bench(a) -> int:
     """Named configs, one JSON line each: ms/frame and primary Mrays/s
     over --frames timed frames after the config's warmup."""
-    import torch
-
     from cpuperformanceraytracer_tpu_torch.render.driver import OfflineRenderer
     from cpuperformanceraytracer_tpu_torch.texture.procedural import gradient_sky
     from cpuperformanceraytracer_tpu_torch.texture.texture import texture_from_array
+    from cpuperformanceraytracer_tpu_torch.utils.timing import device_name
 
     names = a.configs or [k for k in BENCH_CONFIGS
                           if k not in ("inverse_render", "offline_4k")]
@@ -215,14 +218,13 @@ def cmd_bench(a) -> int:
         r = OfflineRenderer(cfg, texture=tex, silent=True)
         t = r.run()
         rays = cfg.width * cfg.height * cfg.spp
-        device = (torch.cuda.get_device_name(r.device)
-                  if r.device.type == "cuda" else "cpu")
         print(json.dumps({
             "config": name, "ms_per_frame": round(t.mean_ms, 3),
             "Mrays_per_s": round(t.rays_per_second(rays) / 1e6, 2),
             "env_texture": env_tex, "frames": t.timed_frames,
             "size": f"{cfg.width}x{cfg.height} spp{cfg.spp} b{cfg.bounces}",
-            "backend": cfg.backend, "device": device}), flush=True)
+            "backend": cfg.backend, "device": device_name(r.device)}),
+            flush=True)
     return 0
 
 
@@ -288,13 +290,16 @@ def _add_common(p) -> None:
     p.add_argument("--height", type=int, default=720)
     p.add_argument("--bounces", type=int, default=8)
     p.add_argument("--spp", type=int, default=1)
-    p.add_argument("--env", default="procedural",
-                   help="'none', 'procedural', or a .hdr path")
+    p.add_argument("--env", default=None,
+                   help="'procedural', a .hdr path, or 'none' or omitted "
+                        "for the constant ambient")
     p.add_argument("--cubemap", nargs=6, default=None,
                    metavar=("PX", "NX", "PY", "NY", "PZ", "NZ"),
                    help="six .hdr faces: a cubemap env instead of --env")
     p.add_argument("--env-sampling", default="stochastic",
                    choices=["stochastic", "nearest", "bilinear"])
+    p.add_argument("--roulette", default="v4_quirk",
+                   choices=["off", "terminate", "v4_quirk"])
     p.add_argument("--backend", default="cuda", choices=list(BACKENDS))
 
 
@@ -302,7 +307,7 @@ def _add_render(p) -> None:
     _add_common(p)
     p.add_argument("--rng", default="wang", choices=["wang", "counter"],
                    help="counter is needed for spp > 1 with an env map")
-    p.add_argument("--frames", type=int, default=64)
+    p.add_argument("--frames", type=int, default=600)
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--exposure", type=float, default=1.0)
     p.add_argument("-o", "--output", default="output_image.bmp")

@@ -8,15 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from cpuperformanceraytracer_tpu_torch.core.vecmath import Vec3
-
-
-def _saturate(x):
-    return torch.clamp(x, 0.0, 1.0)
-
-
-def _saturate3(v: Vec3) -> Vec3:
-    return Vec3(_saturate(v.x), _saturate(v.y), _saturate(v.z))
+from cpuperformanceraytracer_tpu_torch.core.vecmath import Vec3, saturate, saturate3
 
 
 def aces_film(v: Vec3) -> Vec3:
@@ -24,13 +16,13 @@ def aces_film(v: Vec3) -> Vec3:
     a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
 
     def f(x):
-        return _saturate((x * (a * x + b)) / (x * (c * x + d) + e))
+        return saturate((x * (a * x + b)) / (x * (c * x + d) + e))
 
     return Vec3(f(v.x), f(v.y), f(v.z))
 
 
 def linear_to_srgb(v: Vec3) -> Vec3:
-    v = _saturate3(v)
+    v = saturate3(v)
 
     def f(x):
         lo = x * 12.92
@@ -41,7 +33,7 @@ def linear_to_srgb(v: Vec3) -> Vec3:
 
 
 def srgb_to_linear(v: Vec3) -> Vec3:
-    v = _saturate3(v)
+    v = saturate3(v)
 
     def f(x):
         lo = x / 12.92
@@ -57,5 +49,5 @@ def postprocess_color(v: Vec3, exposure: float = 1.0) -> Vec3:
 
 def to_u8(v: Vec3) -> torch.Tensor:
     """Saturate, scale by 255, round half to even, stack as (..., 3) u8."""
-    s = _saturate3(v) * 255.0
+    s = saturate3(v) * 255.0
     return torch.round(torch.stack([s.x, s.y, s.z], dim=-1)).to(torch.uint8)

@@ -53,6 +53,14 @@ def rand01(state) -> Tuple[torch.Tensor, torch.Tensor]:
     return bits_to_unit(state), state
 
 
+def signed_rand01(state) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uniform f32 in [-1, 1) and the advanced state: the u32 read as a
+    signed int32, scaled by 2^-31."""
+    state = wang_hash(torch.as_tensor(state, dtype=torch.int64))
+    signed = state - ((state >> 31) << 32)
+    return signed.to(torch.float32) * _INV_2_31, state
+
+
 def pixel_seed(x, y, frame) -> torch.Tensor:
     """``(x*1973 + y*9277 + frame*26699) | 1`` in wrapping u32."""
     s = _u32(x) * 1973 + _u32(y) * 9277 + _u32(frame) * 26699

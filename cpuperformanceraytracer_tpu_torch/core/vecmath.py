@@ -1,4 +1,4 @@
-"""Vec3 as three same-shape tensors, and the shading vector math.
+"""Vec2 and Vec3 as same-shape tensors, and the shading vector math.
 
 Counterpart of ``cpuperformanceraytracer_tpu.core.vecmath``: each
 component is one tensor over pixels (struct of arrays), and every select
@@ -12,6 +12,29 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+
+class Vec2(NamedTuple):
+    x: torch.Tensor
+    y: torch.Tensor
+
+    def __add__(self, o):
+        if isinstance(o, Vec2):
+            return Vec2(self.x + o.x, self.y + o.y)
+        return Vec2(self.x + o, self.y + o)
+
+    def __sub__(self, o):
+        if isinstance(o, Vec2):
+            return Vec2(self.x - o.x, self.y - o.y)
+        return Vec2(self.x - o, self.y - o)
+
+    def __mul__(self, o):
+        if isinstance(o, Vec2):
+            return Vec2(self.x * o.x, self.y * o.y)
+        return Vec2(self.x * o, self.y * o)
+
+    __radd__ = __add__
+    __rmul__ = __mul__
 
 
 class Vec3(NamedTuple):
@@ -41,10 +64,32 @@ class Vec3(NamedTuple):
     __rmul__ = __mul__
 
 
+def vec2(x, y) -> Vec2:
+    """A Vec2 of f32 tensors (a tensor keeps its device)."""
+    return Vec2(torch.as_tensor(x, dtype=torch.float32),
+                torch.as_tensor(y, dtype=torch.float32))
+
+
+def vec3(x, y=None, z=None) -> Vec3:
+    """A Vec3 of f32 tensors; ``vec3(a)`` is (a, a, a)."""
+    if y is None:
+        y = z = x
+    return Vec3(*(torch.as_tensor(c, dtype=torch.float32) for c in (x, y, z)))
+
+
+def from_array(a: torch.Tensor) -> Vec3:
+    """Unstack a (..., 3) tensor into a Vec3."""
+    return Vec3(a[..., 0], a[..., 1], a[..., 2])
+
+
 def where3(cond, new: Vec3, old: Vec3) -> Vec3:
     return Vec3(torch.where(cond, new.x, old.x),
                 torch.where(cond, new.y, old.y),
                 torch.where(cond, new.z, old.z))
+
+
+def dot2(u: Vec2, v: Vec2):
+    return u.x * v.x + u.y * v.y
 
 
 def dot3(u: Vec3, v: Vec3):
@@ -55,6 +100,26 @@ def cross(u: Vec3, v: Vec3) -> Vec3:
     return Vec3(u.y * v.z - u.z * v.y,
                 u.z * v.x - u.x * v.z,
                 u.x * v.y - u.y * v.x)
+
+
+def length(v: Vec3):
+    return torch.sqrt(dot3(v, v))
+
+
+def lerp(u, v, t):
+    return u + t * (v - u)
+
+
+def lerp3(u: Vec3, v: Vec3, t) -> Vec3:
+    return u + (v - u) * t
+
+
+def saturate(x):
+    return torch.clamp(torch.as_tensor(x), 0.0, 1.0)
+
+
+def saturate3(v: Vec3) -> Vec3:
+    return Vec3(saturate(v.x), saturate(v.y), saturate(v.z))
 
 
 def normalize(v: Vec3) -> Vec3:

@@ -75,6 +75,15 @@ def zero_accum(cfg, device="cpu") -> torch.Tensor:
                        device=device)
 
 
+def accum_to_vec3(accum, cfg=None) -> Vec3:
+    """The (3, H, W) accumulator, or a Vec3, as a Vec3 of planes; with
+    ``cfg`` the planes are reshaped to (cfg.height, cfg.width)."""
+    v = accum if isinstance(accum, Vec3) else Vec3(accum[0], accum[1], accum[2])
+    if cfg is None:
+        return v
+    return Vec3(*(c.reshape(cfg.height, cfg.width) for c in v))
+
+
 def postprocess_image(accum, exposure: float = 1.0,
                       backend: str = "cuda") -> torch.Tensor:
     """(3, H, W) f32 -> (H, W, 3) u8: kernel G's display transform

@@ -19,6 +19,14 @@ nx, py, ny, pz, nz. The lookup is the JAX one step for step:
    - bilinear: floor/ceil of row and col, each clamped to its axis, du
      and dv from the floor corner (the ceil tap aliases the floor tap on
      an integer coordinate), lerped along u then v.
+
+Where a JAX sampler takes a ``Vec2 uv``, its counterpart here takes the
+two tensors ``u, v``. The RNG-threaded samplers (``sample_stochastic``,
+``sample_equirect``, ``sample_cubemap``, ``sample_environment``) return
+``(colour, rng)`` and draw from ``rng.next01()`` exactly as JAX's do: 2
+draws, ``jr`` then ``jc``, for a stochastic lookup of a texture, none
+otherwise. The kernels and the oracle draw the jitter in the bounce loop
+and look the env up once per path (``sample_environment_deferred``).
 """
 
 from __future__ import annotations
@@ -181,6 +189,44 @@ def sample_bilinear(tex: Texture, u, v) -> Vec3:
 def sample_stochastic_with_jitter(tex: Texture, u, v, jr, jc) -> Vec3:
     """The stochastic single tap with the caller's jitter in [0, 1)^2."""
     return gather_texels(tex, stochastic_flat_index(tex, u, v, jr, jc))
+
+
+def sample_stochastic(tex: Texture, u, v, rng):
+    """The stochastic single tap with its 2 draws (``jr`` then ``jc``);
+    returns ``(colour, rng)``."""
+    jr, rng = rng.next01()
+    jc, rng = rng.next01()
+    return sample_stochastic_with_jitter(tex, u, v, jr, jc), rng
+
+
+def _sample_uv(tex: Texture, u, v, mode: str, rng):
+    if mode == "stochastic":
+        return sample_stochastic(tex, u, v, rng)
+    if mode == "bilinear":
+        return sample_bilinear(tex, u, v), rng
+    return sample_nearest(tex, u, v), rng
+
+
+def sample_equirect(tex: Texture, direction: Vec3, mode: str, rng=None):
+    """``(colour, rng)`` of the equirect lookup of ``direction`` (no
+    flip) under ``mode``: stochastic, bilinear or nearest."""
+    return _sample_uv(tex, *equirect_uv(direction), mode, rng)
+
+
+def sample_cubemap(tex: Texture, direction: Vec3, mode: str, rng=None):
+    """``(colour, rng)`` of the cubemap lookup of ``direction``."""
+    return _sample_uv(tex, *cubemap_uv(direction), mode, rng)
+
+
+def sample_environment(tex, direction: Vec3, cfg, rng):
+    """Miss radiance with the v4 conventions, ``(colour, rng)``: the
+    constant ambient for env_mode none or no texture; an equirect lookup
+    of the (-x, y, -z) flipped direction with ``env_flip_xz``; a cubemap
+    lookup of the direction unflipped. 2 draws iff the sampling is
+    stochastic with a texture."""
+    if cfg.env_mode == "none" or tex is None:
+        return sample_environment_deferred(tex, direction, cfg, None, None), rng
+    return _sample_uv(tex, *env_uv(direction, cfg), cfg.env_sampling, rng)
 
 
 def env_texel_flat_index(tex: Texture, direction: Vec3, cfg, jr, jc):

@@ -1033,3 +1033,41 @@ def test_sharded_frame_and_step_on_two_ranks_of_one_card(cuda_device):
         for k, v in grads.items():
             v = v.cpu().double()
             assert ((g[k].double() - v).norm() / v.norm()).item() < 1e-5, k
+
+
+def test_run_offline_resume_bit_equal_on_the_card(cuda_device, tmp_path):
+    """Config 5's driver at 256x128, 8 frames, a checkpoint every 2: the
+    resumed accumulator bit-equal to one uninterrupted run."""
+    from cpuperformanceraytracer_tpu_torch.config import BENCH_CONFIGS
+    from cpuperformanceraytracer_tpu_torch.scripts.run_offline_4k import (
+        run_offline,
+    )
+
+    cfg = BENCH_CONFIGS["offline_4k"].replace(width=256, height=128,
+                                              num_frames=8)
+    tex = texture_from_array(gradient_sky(512, 256))
+    summary, state = run_offline(cfg, tex, str(tmp_path / "o.png"),
+                                 checkpoint_every=2)
+    assert summary["resumed_at_frame"] == 4 and state.frame == 8
+    whole = OfflineRenderer(cfg, texture=tex, silent=True)
+    whole.run()
+    torch.cuda.synchronize()
+    assert torch.equal(state.accum, whole.accum)
+    assert torch.isfinite(state.accum).all() and state.accum.mean() > 0
+
+
+def test_inverse_env_graphed_chunk(cuda_device):
+    """Config 4's driver at 64x32 with a 32x16 env: one graphed chunk of
+    16 Adam steps over the albedos and every texel; finite parameters and
+    a falling loss."""
+    from cpuperformanceraytracer_tpu_torch.scripts.inverse_env_demo import (
+        DEMO,
+        inverse_env,
+    )
+
+    r = inverse_env(DEMO.replace(width=64, height=32),
+                    texture_from_array(gradient_sky(32, 16)), steps=16,
+                    warm_chunks=1, timed_chunks=1)
+    assert r["params_finite"] and r["loss_last"] < r["loss_first"]
+    assert r["params"]["env_rgb"].shape == (32 * 16, 3)
+    assert r["device"] == torch.cuda.get_device_name(cuda_device)

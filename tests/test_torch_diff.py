@@ -379,12 +379,14 @@ def test_cuda_default_raises_without_gpu():
 def test_cli_bench_grad_and_inverse(capsys):
     common = ["--width", "32", "--height", "8", "--bounces", "1",
               "--backend", "torch"]
-    assert cli.main(["bench-grad", *common, "--steps", "2"]) == 0
+    assert cli.main(["bench-grad", *common, "--env", "procedural",
+                     "--steps", "2"]) == 0
     out = json.loads(capsys.readouterr().out.strip())
     assert out["metric"] == "fwd_bwd_ms_per_step" and out["grads_finite"]
     assert out["config"] == "32x8 spp1 b1 env=equirect torch"
     assert cli.main(["inverse", *common, "--env", "none", "--steps", "2"]) == 0
     assert capsys.readouterr().out.startswith("inverse render: loss ")
-    assert cli.main(["inverse", *common, "--env-sampling", "bilinear"]) == 2
+    assert cli.main(["inverse", *common, "--env", "procedural",
+                     "--env-sampling", "bilinear"]) == 2
     err = capsys.readouterr().err.strip()
     assert err.startswith("error: ") and "bilinear" in err and "\n" not in err

@@ -261,5 +261,6 @@ def test_offline_renderer_oracle_accumulates_wang_spp2_env(tmp_path, capsys):
     assert cli.main(["render", "--backend", "oracle", "--width", "32",
                      "--height", "8", "--bounces", "1", "--spp", "2",
                      "--frames", "1", "--warmup", "0", "--scene",
-                     "cornell_box", "-o", str(out), "--silent"]) == 0
+                     "cornell_box", "--env", "procedural", "-o", str(out),
+                     "--silent"]) == 0
     assert out.exists() and "ms/frame" in capsys.readouterr().out

@@ -191,7 +191,7 @@ def test_cli_bench_grad_steps_per_dispatch(capsys, backend, flags, k, steps):
     """``--steps-per-dispatch`` reaches the bench; the oracle's defaults
     are JAX's ``xla`` ones: 4 steps, K = 1, path replay."""
     args = ["bench-grad", "--width", "32", "--height", "8", "--bounces", "1",
-            "--backend", backend, *flags]
+            "--env", "procedural", "--backend", backend, *flags]
     assert cli.main(args) == 0
     out = json.loads(capsys.readouterr().out.strip())
     assert out["steps_per_dispatch"] == k and out["steps_timed"] == steps

@@ -326,8 +326,8 @@ def test_cli_watch_rewrites_the_image(tmp_path, capsys, monkeypatch):
         "frame 2/5", "frame 4/5", "frame 5/5"]
     assert all(re.search(r"[\d.]+ ms/frame .*w\.png$", ln) for ln in lines)
     assert out.read_bytes().startswith(b"\x89PNG")
-    assert cli.main(["watch", *_TINY, "--frames", "2", "--interval", "2",
-                     "--live", "-o", str(out)]) == 0
+    assert cli.main(["watch", *_TINY, "--env", "procedural", "--frames",
+                     "2", "--interval", "2", "--live", "-o", str(out)]) == 0
     live = capsys.readouterr().out
     assert "\x1b[38;2;" in live and "frame 2/2" in live
 
@@ -369,5 +369,6 @@ def test_cli_render_cubemap_checkpoint(tmp_path, capsys):
         assert int(z["frame"]) == 4
         assert json.loads(str(z["config"]))["env_mode"] == "cubemap"
     capsys.readouterr()
-    assert cli.main(["render", *_TINY, "--spp", "2", "-o", str(out)]) == 2
+    assert cli.main(["render", *_TINY, "--env", "procedural", "--spp", "2",
+                     "-o", str(out)]) == 2
     assert "counter" in capsys.readouterr().err
