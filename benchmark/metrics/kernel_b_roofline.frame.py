@@ -1,0 +1,9 @@
+"""Kernel B's share of its roofline, in percent: its bound (the work
+counted in ``benchmark/work/kernel_b.py``) over its device time in the
+trace."""
+
+from benchmark.harness.readers import roofline
+
+
+def read(ctx):
+    return roofline(ctx, "kernel_b")
