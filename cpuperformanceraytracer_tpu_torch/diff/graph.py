@@ -7,7 +7,11 @@ The JAX package fuses K steps into one ``lax.scan``. Here one
 replay renders the frame the host wrote into ``base`` with ``fill_`` (a
 kernel, not a copy from the host). ``make_grad_step_k`` and
 ``make_train_step_k`` build on it; on the CPU they run the K steps in a
-loop, with int frames.
+loop, with int frames. The graph keeps what its capture made
+(``utils/profiling.capturing``): the kernel launches its capture made,
+counted at each replay apart from the wrappers' own counts
+(``profiling.replayed_launches``), and the phase events of a capture
+made with tracing on, timed at each replay.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Callable
 import torch
 
 from cpuperformanceraytracer_tpu_torch.core.rng import DeviceFrame
+from cpuperformanceraytracer_tpu_torch.utils import profiling
 
 
 class StepGraph:
@@ -36,7 +41,7 @@ class StepGraph:
             steps(frames)
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with profiling.capturing() as self.made, torch.cuda.graph(self.graph):
             self.out = steps(frames)
 
     def replay(self, frame0: int):
@@ -44,4 +49,5 @@ class StepGraph:
         captured outputs, which the next replay overwrites."""
         self.base.fill_(int(frame0))
         self.graph.replay()
+        profiling.replayed(self.made)
         return self.out

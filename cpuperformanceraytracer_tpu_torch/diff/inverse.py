@@ -23,6 +23,7 @@ from cpuperformanceraytracer_tpu_torch.diff.grad import (
     image_loss,
     render_for_params,
 )
+from cpuperformanceraytracer_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -45,17 +46,28 @@ def make_train_step(problem: InverseProblem, optimizer,
     must be rendered with the same cfg and frame). True draws a fresh
     sample set per step: unbiased stochastic gradients over path space.
     The scene's quad table is derived once, here.
+
+    With tracing on, a step is four phases (``utils/profiling.phases``):
+    ``step.render`` (the gradients' reset, the parameters' packing,
+    kernels A and B), ``step.loss``, ``step.backward`` (the loss's
+    backward, kernels C and D and their glue) and ``step.adam``.
     """
     quad_tbl = fixed_quad_table(problem.scene)
+    device = problem.target.device
 
     def train_step(params: Dict, step) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        img = render_for_params(params, problem.scene, problem.camera,
-                                problem.texture, problem.cfg,
-                                step if resample_frames else 0, quad_tbl)
-        loss = image_loss(img, problem.target)
-        loss.backward()
-        optimizer.step()
+        steps = profiling.phases(device)
+        with steps.phase("step.render"):
+            optimizer.zero_grad(set_to_none=True)
+            img = render_for_params(params, problem.scene, problem.camera,
+                                    problem.texture, problem.cfg,
+                                    step if resample_frames else 0, quad_tbl)
+        with steps.phase("step.loss"):
+            loss = image_loss(img, problem.target)
+        with steps.phase("step.backward"):
+            loss.backward()
+        with steps.phase("step.adam"):
+            optimizer.step()
         return loss.detach()
 
     return train_step
@@ -72,7 +84,9 @@ def make_train_step_k(problem: InverseProblem, optimizer, k: int,
     ``optimizer`` must be ``capturable`` and ``params`` the tensors it
     updates. The capture's warm-up steps on a side stream are undone:
     the parameters and the optimizer's state are put back as they were
-    before them."""
+    before them. With tracing on, a call on the card is the span
+    ``dispatch``, with the children ``dispatch.replay`` and
+    ``dispatch.losses``."""
     train_step = make_train_step(problem, optimizer, resample_frames)
     graph = captured = None
 
@@ -80,10 +94,14 @@ def make_train_step_k(problem: InverseProblem, optimizer, k: int,
         return torch.stack([train_step(params, f) for f in frames])
 
     def train_step_k(params: Dict, step0: int) -> torch.Tensor:
-        nonlocal graph, captured
         device = next(iter(params.values())).device
         if device.type != "cuda":
             return k_steps(params, [int(step0) + i for i in range(k)])
+        with profiling.span("dispatch"):
+            return dispatch(params, step0, device)
+
+    def dispatch(params: Dict, step0: int, device) -> torch.Tensor:
+        nonlocal graph, captured
         if graph is None:
             if not all(g.get("capturable") for g in optimizer.param_groups):
                 raise ValueError("make_train_step_k on the card needs a "
@@ -105,7 +123,10 @@ def make_train_step_k(problem: InverseProblem, optimizer, k: int,
         if any(v is not captured.get(n) for n, v in params.items()):
             raise ValueError("make_train_step_k: params are not the tensors "
                              "the graph was captured with")
-        return graph.replay(step0).clone()
+        with profiling.span("dispatch.replay"):
+            losses = graph.replay(step0)
+        with profiling.span("dispatch.losses"):
+            return losses.clone()
 
     return train_step_k
 

@@ -63,6 +63,7 @@ from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
     window,
 )
 from cpuperformanceraytracer_tpu_torch.texture.texture import Texture
+from cpuperformanceraytracer_tpu_torch.utils import profiling
 
 OUT_PLANES = (0, 1, 2, 6, 7, 8)  # kernel A's r, g, b, mt_x, mt_y, mt_z
 
@@ -171,9 +172,7 @@ def bwd_tables(tables, cfg, frame, sample0: int, cot6, lane_stats=None,
         None if lane_stats is None else lane_stats.data_ptr(),
         None if clocks is None else clocks.data_ptr(), base, stream)
     check(err, "bwd_tables")
-    # a launch, not a capture into a CUDA graph: its replays launch
-    if not torch.cuda.is_current_stream_capturing():
-        bwd_tables.launches += 1
+    profiling.count_launch(bwd_tables)
     flat = torch.sum(partials, dim=0)  # a fixed shape: a fixed order
     return tuple(part.reshape(t.shape)
                  for part, t in zip(torch.split(flat, sizes), tables))
@@ -190,15 +189,18 @@ class DiffSample(torch.autograd.Function):
     ``DeviceFrame`` (kept in ``ctx``, so kernel C reads the frame kernel A
     read), ``sample0`` an int; ``tex_shape`` is the texture's (width,
     height). Kernels B and D take the window's buffers as they are (per
-    pixel and per run record), so only A and C see the window."""
+    pixel and per run record), so only A and C see the window. With
+    tracing on, A and C count their lanes into ``utils/profiling``'s
+    ``kernel_a`` and ``kernel_c`` counters."""
 
     @staticmethod
     def forward(ctx, cfg, frame, sample0, tex_shape, quad, sph, mat, cam,
                 tex_r, tex_g, tex_b, rows=None):
         tables = (quad, sph, mat, cam)
         row0, h = rows = window(cfg, *(rows or (0, None)))
-        planes = render_planes(tables, cfg, frame, sample0, row0=row0,
-                               local_height=h)
+        planes = render_planes(
+            tables, cfg, frame, sample0, row0=row0, local_height=h,
+            lane_stats=profiling.lane_counter("kernel_a", quad.device))
         env = cfg.env_mode != "none"
         texture = Texture(tex_r, tex_g, tex_b, *tex_shape) if env else None
         color = torch.zeros((3, h, cfg.width), dtype=torch.float32,
@@ -223,9 +225,10 @@ class DiffSample(torch.autograd.Function):
         else:
             cot_mt, d_tex = torch.zeros_like(g), (None, None, None)
         cot6 = torch.cat([g, cot_mt])
-        d_tables = bwd_tables((quad, sph, mat, cam), cfg, ctx.frame,
-                              ctx.sample0, cot6, row0=ctx.rows[0],
-                              local_height=ctx.rows[1])
+        d_tables = bwd_tables(
+            (quad, sph, mat, cam), cfg, ctx.frame, ctx.sample0, cot6,
+            lane_stats=profiling.lane_counter("kernel_c", quad.device),
+            row0=ctx.rows[0], local_height=ctx.rows[1])
         return (None, None, None, None, *d_tables, *d_tex, None)
 
 

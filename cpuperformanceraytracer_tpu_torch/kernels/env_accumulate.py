@@ -39,6 +39,7 @@ from cpuperformanceraytracer_tpu_torch.texture.texture import (
     env_texel_flat_index,
     gather_texels,
 )
+from cpuperformanceraytracer_tpu_torch.utils.profiling import count_launch
 
 
 def env_color_reference(planes, texture, cfg):
@@ -120,9 +121,7 @@ def env_accumulate(planes, texture, cfg, accum, blend: float = 1.0,
         int(cfg.env_flip_xz),
         None if index_out is None else index_out.data_ptr(), stream)
     check(err, "env_accumulate")
-    # a launch, not a capture into a CUDA graph: its replays launch
-    if not torch.cuda.is_current_stream_capturing():
-        env_accumulate.launches += 1
+    count_launch(env_accumulate)
     return accum
 
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from cpuperformanceraytracer_tpu_torch.kernels._build import check, load_library
+from cpuperformanceraytracer_tpu_torch.utils.profiling import count_launch
 
 
 def env_backward_reference(g, idx, mt, texture):
@@ -97,9 +98,7 @@ def env_backward(g, idx, mt, texture):
     check(lib.cprt_env_backward_sums(
         sorted_keys.data_ptr(), order.data_ptr(), recs.data_ptr(), m, n_tex,
         *(d.data_ptr() for d in d_tex), stream), "env_backward")
-    # a launch, not a capture into a CUDA graph: its replays launch
-    if not torch.cuda.is_current_stream_capturing():
-        env_backward.launches += 1
+    count_launch(env_backward)
     return cot_mt, d_tex
 
 

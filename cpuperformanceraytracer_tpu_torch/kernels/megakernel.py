@@ -79,6 +79,7 @@ from cpuperformanceraytracer_tpu_torch.core.vecmath import (
 )
 from cpuperformanceraytracer_tpu_torch.kernels._build import check, load_library
 from cpuperformanceraytracer_tpu_torch.scene.types import precompute_quads
+from cpuperformanceraytracer_tpu_torch.utils.profiling import count_launch
 
 QUAD_COLS = 25
 SPH_COLS = 5
@@ -463,9 +464,7 @@ def render_planes(tables, cfg, frame, sample0: int = 0,
         None if lane_stats is None else lane_stats.data_ptr(), base,
         per_sm * sms, stream)
     check(err, "render_planes")
-    # a launch, not a capture into a CUDA graph: its replays launch
-    if not torch.cuda.is_current_stream_capturing():
-        render_planes.launches += 1
+    count_launch(render_planes)
     return out
 
 

@@ -51,6 +51,7 @@ from cpuperformanceraytracer_tpu_torch.render.frame import (
 )
 from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
 from cpuperformanceraytracer_tpu_torch.texture.texture import Texture, texture_to
+from cpuperformanceraytracer_tpu_torch.utils import profiling
 from cpuperformanceraytracer_tpu_torch.utils.log import get_logger, progress
 from cpuperformanceraytracer_tpu_torch.utils.timing import FrameTimer
 
@@ -148,8 +149,10 @@ class OfflineRenderer:
             torch.cuda.synchronize(self.device)
 
     def step(self) -> None:
-        """One progressive frame (the accumulator updates in place)."""
-        self.frame_fn(self.texture, self.frame, self.local)
+        """One progressive frame (the accumulator updates in place); with
+        tracing on, the span ``driver.frame``."""
+        with profiling.span("driver.frame"):
+            self.frame_fn(self.texture, self.frame, self.local)
         self.frame += 1
 
     def step_k(self, k: int) -> None:

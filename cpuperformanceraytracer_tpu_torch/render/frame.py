@@ -25,6 +25,12 @@ the oracle integrator (``render/integrator.render_frame``, the JAX
 ``"xla"`` route) and accumulates it; it takes every config, the wang RNG
 with spp > 1 and an env map included.
 
+With tracing on (``utils/profiling``) a frame is the spans
+``frame.render``, around each of kernel A's launches, and
+``frame.resolve``, around B, or around each E and the F, in the order
+they are enqueued; on the kernels' route kernel A counts its lanes
+into ``profiling.lane_counter("kernel_a", ...)``.
+
 Image convention: (H, W), row 0 = top; the fragCoord y of a row is
 H-1-row.
 """
@@ -63,6 +69,7 @@ from cpuperformanceraytracer_tpu_torch.render.integrator import (
     render_frame,
     to_device,
 )
+from cpuperformanceraytracer_tpu_torch.utils import profiling
 
 
 def frame_blend(frame: int) -> float:
@@ -137,10 +144,13 @@ def make_frame_fn(cfg, scene, camera, device, row0: int = 0,
 
         def step(texture, frame: int, accum: torch.Tensor,
                  blend=None) -> torch.Tensor:
-            color = render_frame(scene, camera, texture, cfg, frame,
-                                 spp_offset=spp_offset, **rows)
-            return accumulate_frame(
-                accum, color, frame_blend(frame) if blend is None else blend)
+            with profiling.span("frame.render"):
+                color = render_frame(scene, camera, texture, cfg, frame,
+                                     spp_offset=spp_offset, **rows)
+            with profiling.span("frame.resolve"):
+                return accumulate_frame(
+                    accum, color,
+                    frame_blend(frame) if blend is None else blend)
 
         return step
     if cfg.spp > 1 and cfg.env_mode != "none" and cfg.rng != "counter":
@@ -150,22 +160,32 @@ def make_frame_fn(cfg, scene, camera, device, row0: int = 0,
             "the sample loop")
     tables = pack_tables(scene, camera, cfg, device)
     cuda = cfg.backend == "cuda"
+    dev = tables[0].device
+
+    def render_a(*args, **kw):
+        """Kernel A, counting its lanes while tracing is on."""
+        return render_planes(
+            *args, lane_stats=profiling.lane_counter("kernel_a", dev), **kw)
+
     # kernels B, E and F work per pixel: they see the window as an image
     # of its own rows
     local = cfg.replace(height=h)
     if not uses_combine(cfg):
-        render = render_planes if cuda else render_planes_reference
+        render = render_a if cuda else render_planes_reference
         resolve = env_accumulate if cuda else env_accumulate_reference
 
         def step(texture, frame: int, accum: torch.Tensor,
                  blend=None) -> torch.Tensor:
-            planes = render(tables, cfg, frame, sample0=spp_offset, **rows)
-            return resolve(planes, texture, local, accum,
-                           frame_blend(frame) if blend is None else blend)
+            with profiling.span("frame.render"):
+                planes = render(tables, cfg, frame, sample0=spp_offset,
+                                **rows)
+            with profiling.span("frame.resolve"):
+                return resolve(planes, texture, local, accum,
+                               frame_blend(frame) if blend is None else blend)
 
         return step
 
-    render = render_planes if cuda else _render_plain
+    render = render_a if cuda else _render_plain
     lookup = env_lookup if cuda else env_lookup_reference
     combine = combine_accumulate if cuda else combine_accumulate_reference
     one = cfg.replace(spp=1)
@@ -180,12 +200,16 @@ def make_frame_fn(cfg, scene, camera, device, row0: int = 0,
             bufs["e4"] = torch.empty((spp, h * w, 4), **kw)
         planes, e4 = bufs["planes"], bufs["e4"]
         for s in range(spp):
-            render(tables, one, frame, sample0=spp_offset + s, out=planes[s],
-                   **rows)
-            lookup(planes[s], texture, local, out=e4[s])
+            with profiling.span("frame.render"):
+                render(tables, one, frame, sample0=spp_offset + s,
+                       out=planes[s], **rows)
+            with profiling.span("frame.resolve"):
+                lookup(planes[s], texture, local, out=e4[s])
         blend = frame_blend(frame) if blend is None else blend
-        if spp == 1:
-            return combine(e4[0], planes[0, 0:3], planes[0, 6:9], accum, blend)
-        return combine(e4, planes[:, 0:3], planes[:, 6:9], accum, blend)
+        with profiling.span("frame.resolve"):
+            if spp == 1:
+                return combine(e4[0], planes[0, 0:3], planes[0, 6:9], accum,
+                               blend)
+            return combine(e4, planes[:, 0:3], planes[:, 6:9], accum, blend)
 
     return step

@@ -1071,3 +1071,145 @@ def test_inverse_env_graphed_chunk(cuda_device):
     assert r["params_finite"] and r["loss_last"] < r["loss_first"]
     assert r["params"]["env_rgb"].shape == (32 * 16, 3)
     assert r["device"] == torch.cuda.get_device_name(cuda_device)
+
+
+# ---- tracing (utils/profiling) on the card ----------------------------------
+
+PHASES = {"step.render", "step.loss", "step.backward", "step.adam"}
+
+
+@pytest.fixture
+def tracing():
+    """``utils/profiling``, off and reset before and after the test."""
+    from cpuperformanceraytracer_tpu_torch.utils import profiling
+
+    profiling.disable()
+    profiling.reset()
+    yield profiling
+    profiling.disable()
+    profiling.reset()
+
+
+def _train_graph(dev, k: int = 2):
+    """(step_k, params): K graphed Adam steps over ``_glass_step``'s
+    parameters, a fresh sample a step."""
+    from cpuperformanceraytracer_tpu_torch.diff.inverse import (
+        InverseProblem,
+        make_train_step_k,
+    )
+
+    params, target, scene, cam, tex, cfg = _glass_step(dev)
+    p = {n: v.detach().clone().requires_grad_() for n, v in params.items()}
+    opt = torch.optim.Adam(list(p.values()), lr=0.01, capturable=True)
+    step_k = make_train_step_k(InverseProblem(scene, cam, tex, cfg, target),
+                               opt, k, resample_frames=True)
+    return step_k, p
+
+
+def _lanes_ok(lanes: dict, kernels: set) -> bool:
+    return set(lanes) == kernels and all(
+        0 < live <= slots for live, slots in lanes.values())
+
+
+def test_tracing_counts_the_lanes_of_kernels_a_and_c(cuda_device, tracing):
+    """With tracing on, frames count kernel A's lanes and a training step
+    A's and C's, 0 < live <= slots; with tracing off nothing counts."""
+    cfg = RenderConfig(width=128, height=32, bounces=2, env_mode="none",
+                       warmup_frames=0, num_frames=2)
+    r = OfflineRenderer(cfg, silent=True)
+    r.step()
+    params, target, scene, cam, tex, tcfg = _glass_step(cuda_device)
+    loss_and_grad(params, target, scene, cam, tex, tcfg, 1)
+    assert tracing.read() == {"lanes": {}, "phases_ms": {}}
+    tracing.enable()
+    r.step()
+    assert _lanes_ok(tracing.read()["lanes"], {"kernel_a"})
+    tracing.reset()
+    loss_and_grad(params, target, scene, cam, tex, tcfg, 1)
+    assert _lanes_ok(tracing.read()["lanes"], {"kernel_a", "kernel_c"})
+
+
+def test_a_graph_captured_with_tracing_on_times_its_phases(cuda_device,
+                                                          tracing):
+    """A K = 2 graph captured with tracing on: its replays time four
+    positive phases a step, which end to end make up the replay's device
+    time, and count A's and C's lanes, even with tracing off by then (the
+    flag is read at capture)."""
+    tracing.enable()
+    step_k, p = _train_graph(cuda_device)
+    step_k(p, 0)
+    tracing.disable()
+    tracing.reset()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(2e7))     # the replay is enqueued before it starts
+    start.record()
+    step_k(p, 2)
+    end.record()
+    got = tracing.read()
+    phases = got["phases_ms"]
+    assert set(phases) == PHASES and min(phases.values()) > 0, phases
+    per_step = start.elapsed_time(end) / 2
+    # the replay's device time holds the phases and the frame's fill_
+    assert 0.8 * per_step <= sum(phases.values()) <= per_step, (phases,
+                                                                per_step)
+    assert _lanes_ok(got["lanes"], {"kernel_a", "kernel_c"})
+
+
+def test_a_graph_captured_with_tracing_off_records_nothing(cuda_device,
+                                                         tracing):
+    step_k, p = _train_graph(cuda_device)
+    step_k(p, 0)
+    tracing.enable()
+    tracing.reset()
+    for step0 in (2, 4):
+        step_k(p, step0)
+    assert tracing.read() == {"lanes": {}, "phases_ms": {}}
+
+
+def test_reset_zeroes_the_counters_and_keeps_the_graph(cuda_device, tracing):
+    tracing.enable()
+    step_k, p = _train_graph(cuda_device)
+    step_k(p, 0)
+    tracing.reset()
+    assert tracing.read() == {"lanes": {}, "phases_ms": {}}
+    losses = step_k(p, 2)
+    got = tracing.read()
+    assert torch.isfinite(losses).all()
+    assert _lanes_ok(got["lanes"], {"kernel_a", "kernel_c"})
+    assert set(got["phases_ms"]) == PHASES
+
+
+def test_replays_count_the_launches_their_capture_made(cuda_device):
+    """N replays of a K = 2 graph count N x 2 launches of each of A-D in
+    ``profiling.replayed_launches()``, as many as torch.profiler counts on
+    the device, and leave the wrappers' own counts as they were. The
+    profiler now and then drops records of a replay: a trace short of
+    the count is taken again, up to 3 times."""
+    from cpuperformanceraytracer_tpu_torch.utils import profiling
+
+    step_k, p = _train_graph(cuda_device)
+    step_k(p, 0)
+    kernels = (render_planes, env_accumulate, bwd_tables, env_backward)
+    names = {"render_planes": "render_planes_kernel",
+             "env_accumulate": "env_accumulate_kernel",
+             "bwd_tables": "bwd_tables_kernel",
+             "env_backward": "env_runs_kernel"}
+    want = dict.fromkeys(names, 3 * 2)
+    for _ in range(3):
+        before = [k.launches for k in kernels]
+        counted = profiling.replayed_launches()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for step0 in (2, 4, 6):
+                step_k(p, step0)
+            torch.cuda.synchronize()
+        after = profiling.replayed_launches()
+        replayed = {n: after.get(n, 0) - counted.get(n, 0) for n in names}
+        device = {n: sum(e.count for e in prof.key_averages() if fn in e.key)
+                  for n, fn in names.items()}
+        assert replayed == want
+        assert [k.launches for k in kernels] == before
+        if device == want or any(device[n] > want[n] for n in names):
+            break
+    assert device == want

@@ -459,24 +459,6 @@ def test_debug_vis_shapes_and_jax():
         assert (chunks[1:, 0] != chunks[:-1, 0]).any(-1).all()
 
 
-def test_throughput_report():
-    from cpuperformanceraytracer_tpu.utils.profiling import (
-        throughput_report as jreport,
-    )
-
-    from cpuperformanceraytracer_tpu_torch.utils.profiling import (
-        throughput_report,
-    )
-
-    kw = dict(width=1280, height=720, spp=1, bounces=8)
-    r = throughput_report(_cfg(**kw), 100.0)
-    assert abs(r.primary_mrays_per_s - 9.216) < 0.01
-    assert abs(r.max_segment_mrays_per_s - 9.216 * 9) < 0.1
-    assert "ms/frame" in str(r)
-    j = jreport(_jax_cfg(**kw), 100.0)
-    assert str(r) == str(j) and r.accum_bytes_per_frame == j.accum_bytes_per_frame
-
-
 def test_profiling_trace_writes_a_chrome_trace(tmp_path):
     from cpuperformanceraytracer_tpu_torch.utils.profiling import TRACE_FILE, trace
 
