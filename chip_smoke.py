@@ -74,13 +74,24 @@ Phases, one line each; any failure raises and the exit code is not 0:
    splits its device time by kernel; the graphed grad_sum and losses
    bit-equal to 16 ungraphed steps summed in order, and 16 graphed Adam
    steps (capturable) leave
-   the parameters and losses bit-equal to 16 ungraphed ones; gradients
+   the parameters and losses bit-equal to 16 ungraphed ones, Adam's
+   kernel counted from 0 just before each side (16 launches in the
+   capture's warm-up run, 16 in the graph's replay, 16 in the ungraphed
+   loop); gradients
    finite and within 2e-2 relative L2 of the plain path's on the card;
    two steps on one frame bit-equal (loss and gradients); the same step
    with a cubemap env (six gradient_sky(256, 256) faces) within 2e-2
    relative L2 of the plain path's; then 8 Adam steps of
    adam_inverse_render on the albedo (one graph of 8), whose loss must
-   fall;
+   fall, with 8 launches of Adam's kernel in the capture's warm-up run.
+   Adam's kernel (kernels/adam.py) at the training leaves of the
+   720p and 1080p cells (albedo 11x3, sphere centers 7x3, 131072 or
+   2097152 texels x 3): 16 steps bit-equal to torch.optim.Adam(
+   capturable=True) in params and state, 16 launches counted from 0
+   just before them; a step's device time in a CUDA
+   graph of 16 steps, for the kernel, its plain version and, as
+   yardsticks the port never calls, torch's foreach capturable step and
+   fused=True, beside its bound (28 bytes an element);
 9. kernel E (env lookup + texel fetch) vs its plain version on phase 3's
    720p planes, for all six env_mode x env_sampling pairs (equirect
    gradient_sky(512, 256); cubemap six gradient_sky(256, 256) faces):
@@ -160,8 +171,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
    their efficiency measures contention and gloo's host staging);
 17. the drivers of BASELINE configs 5 and 4 and of the headline metric,
    run as a user runs them, each with the launch counts of kernels A, B,
-   C, D and G set to 0 just before it and read just after (C and D must
-   launch where the driver trains; a CUDA graph's replays are not
+   C, D, G and Adam's set to 0 just before it and read just after (C and
+   D must launch where the driver takes gradients, Adam's kernel where
+   it trains; a CUDA graph's replays are not
    counted, its capture's warm-up run is): ``scripts.run_offline_4k.
    run_offline`` at 3840x2160 x 1024 frames (phase 1 to frame 512 with a
    checkpoint every 128, a fresh renderer resumed for the rest), its
@@ -177,7 +189,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
    included and at steady state and each material's albedo error; its
    first step's gradients (A-D at spp 2, T > P) within 2e-2 relative L2
    of the plain path's on the card, and the same 200 steps on the plain
-   path on the card, whose losses the kernels' must match within 1e-4
+   path on the card (``backend="torch"``: torch's own capturable Adam,
+   no launch of Adam's kernel), whose losses the kernels' must match within 1e-4
    relative at every step and whose albedos within 1e-4; ``bench.
    headline``, whose JSON line is printed (gradients finite); and the
    training step at 720p, K = 16, with a ``gradient_sky(2048, 1024)`` env
@@ -746,10 +759,12 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
         make_train_step,
         make_train_step_k,
     )
+    from cpuperformanceraytracer_tpu_torch.kernels.adam import adam
     from cpuperformanceraytracer_tpu_torch.kernels.backward import bwd_tables
     from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
     from cpuperformanceraytracer_tpu_torch.kernels.env_backward import env_backward
     from cpuperformanceraytracer_tpu_torch.kernels.megakernel import render_planes
+    from cpuperformanceraytracer_tpu_torch.utils import profiling
 
     cfg = glass_cfg.replace(rng="counter", backend="cuda")
     kernels = (render_planes, env_accumulate, bwd_tables, env_backward)
@@ -871,16 +886,29 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
 
     pg, opt_g = adam_copy()
     pu, opt_u = adam_copy()
-    lg = make_train_step_k(problem, opt_g, STEPS_PER_DISPATCH,
-                           resample_frames=True)(pg, 1)
+    # Adam's kernel on each side, its count set to 0 just before it: the
+    # capture's warm-up run and the graph's replay, then the per-step loop
+    adam.launches = 0
+    replayed = profiling.replayed_launches().get("adam", 0)
+    graphed = make_train_step_k(problem, opt_g, STEPS_PER_DISPATCH,
+                                resample_frames=True)
+    lg = graphed(pg, 1)
+    adam_launches = {
+        "training_capture_warm_up": adam.launches,
+        "training": profiling.replayed_launches().get("adam", 0) - replayed}
+    adam.launches = 0
     plain = make_train_step(problem, opt_u, resample_frames=True)
     lu = torch.stack([plain(pu, 1 + i) for i in range(STEPS_PER_DISPATCH)])
+    adam_launches["training_k1"] = adam.launches
     torch.cuda.synchronize()
+    if adam_launches != dict.fromkeys(adam_launches, STEPS_PER_DISPATCH):
+        raise AssertionError(f"Adam's kernel launched {adam_launches}, "
+                             f"expected {STEPS_PER_DISPATCH} on each path")
     if not (bits_equal(lg, lu) and all(bits_equal(pg[n].detach(),
                                                    pu[n].detach())
                                        for n in params)):
         raise AssertionError("graphed Adam steps differ from ungraphed ones")
-    del pg, pu, opt_g, opt_u
+    del pg, pu, opt_g, opt_u, graphed
 
     loss_a, got = loss_and_grad(params, target, scene, cam, tex, cfg, 1)
     loss_b, again = loss_and_grad(params, target, scene, cam, tex, cfg, 1)
@@ -914,10 +942,16 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
     # 8 Adam steps: K = 8, one CUDA graph (JAX's auto rule)
     m = scene.materials.albedo
     albedo = torch.stack([m.x, m.y, m.z], -1)
+    adam.launches = 0
     _, losses = adam_inverse_render(problem, {"albedo": albedo + 0.05},
                                     steps=8, learning_rate=0.01)
+    adam_launches["inverse_8_steps_capture_warm_up"] = adam.launches
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"inverse: losses {losses}")
+    if adam.launches != 8:
+        raise AssertionError(f"inverse: Adam's kernel launched "
+                             f"{adam.launches} times in the capture's "
+                             f"warm-up run of 8 steps")
     g, u = runs[STEPS_PER_DISPATCH], runs[1]
     phase("training path", f"K={STEPS_PER_DISPATCH}: "
           f"{g['ms_per_step']:.4f} ms/step, device busy "
@@ -934,7 +968,8 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
           + f"; graphed grad_sum and losses "
           f"bit-equal to {STEPS_PER_DISPATCH} ungraphed steps; "
           f"{STEPS_PER_DISPATCH} graphed Adam steps bit-equal to ungraphed "
-          f"capturable ones; two steps bit-equal; grads vs plain path "
+          f"capturable ones, Adam's kernel launched {adam_launches}; two "
+          f"steps bit-equal; grads vs plain path "
           f"relative L2 " + ", ".join(f"{n} {v:.3e}" for n, v in rels.items())
           + "; cubemap step vs plain path "
           + ", ".join(f"{n} {v:.3e}" for n, v in crels.items())
@@ -945,7 +980,7 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
                    grad_rel_l2_vs_plain=rels, bit_equal_twice=True,
                    cubemap_grad_rel_l2_vs_plain=crels, inverse_losses=losses)
     return {"launches": g["launches"], "launches_k1": u["launches"],
-            "summary": summary}
+            "adam_launches": adam_launches, "summary": summary}
 
 
 TEXTURED_FRAMES = 16            # timed textured_1080 frames (phase 12)
@@ -961,6 +996,96 @@ def cubemap_texture(dev, size: int):
 
     return texture_from_array(np.concatenate(
         [gradient_sky(size, size, seed=i) for i in range(6)]), dev)
+
+
+def graph_step_ms(step, calls: int = 16, replays: int = 20) -> float:
+    """Device milliseconds a call of ``step``, from replays of one CUDA
+    graph of ``calls`` calls (the gaps between its kernels included, as in
+    the training graph)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            step()
+    return cuda_ms(graph.replay, replays) / calls
+
+
+def phase_kernel_adam(dev) -> dict:
+    """Adam's kernel at the train cells' leaf shapes: {cell: numbers}."""
+    from cpuperformanceraytracer_tpu_torch.kernels.adam import (
+        adam,
+        adam_reference,
+        adam_step,
+    )
+
+    out = {}
+    for cell, texels in (("720p", 131072), ("1080p", 2097152)):
+        shapes = ((11, 3), (7, 3), (texels, 3))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        start = [0.5 + torch.rand(s, device=dev, generator=gen) for s in shapes]
+        grads = [[torch.randn(s, device=dev, generator=gen) * 10.0 ** -(k % 4)
+                  for s in shapes] for k in range(16)]
+
+        def fresh(**options):
+            leaves = [t.clone().requires_grad_() for t in start]
+            return leaves, torch.optim.Adam(leaves, lr=0.01, **options)
+
+        (got, opt_got), (want, opt_want) = (fresh(capturable=True)
+                                            for _ in range(2))
+        adam.launches = 0
+        for gs in grads:
+            for a, b, g in zip(got, want, gs):
+                a.grad, b.grad = g, g.clone()
+            adam_step(opt_got)
+            opt_want.step()
+        torch.cuda.synchronize()
+        made = adam.launches
+        if made != len(grads):
+            raise AssertionError(f"Adam at {cell}: {made} launches for "
+                                 f"{len(grads)} steps")
+        for a, b in zip(got, want):
+            pairs = [(a.detach(), b.detach())] + [
+                (opt_got.state[a][k], opt_want.state[b][k])
+                for k in ("step", "exp_avg", "exp_avg_sq")]
+            if not all(bits_equal(x, y) for x, y in pairs):
+                raise AssertionError(f"Adam at {cell}: the kernel's params "
+                                     f"or state differ from torch's")
+        # a step of each, the leaves' gradients set once
+        timed = {}
+        for name in ("kernel", "plain", "foreach", "fused"):
+            leaves, opt = fresh(capturable=True, fused=name == "fused" or None)
+            for p, g in zip(leaves, grads[0]):
+                p.grad = g
+            opt.step()          # the state, made outside the graph
+            states = [opt.state[p] for p in leaves]
+            plain_args = ([p.detach() for p in leaves], grads[0],
+                          [s["exp_avg"] for s in states],
+                          [s["exp_avg_sq"] for s in states],
+                          [s["step"] for s in states])
+            step = {"kernel": lambda: adam_step(opt),
+                    "plain": lambda: adam_reference(
+                        *plain_args, lr=0.01, beta1=0.9, beta2=0.999,
+                        eps=1e-8),
+                    "foreach": opt.step, "fused": opt.step}[name]
+            with torch.no_grad():
+                timed[name] = graph_step_ms(step)
+        n = sum(math.prod(s) for s in shapes)
+        out[cell] = dict(elements=n, launches=made, ms=timed["kernel"],
+                         plain_ms=timed["plain"],
+                         library_ms={"foreach_capturable": timed["foreach"],
+                                     "fused": timed["fused"]},
+                         bound=bound(28 * n, 0))
+        phase("kernel adam", f"{cell}: {n} values, 16 steps bit-equal to "
+              f"torch's capturable Adam; {timed['kernel']:.4f} ms a step "
+              f"(bound {out[cell]['bound'][0]:.4f}) vs plain "
+              f"{timed['plain']:.4f}, torch foreach {timed['foreach']:.4f}, "
+              f"fused {timed['fused']:.4f}; {made} launches for the 16 "
+              f"steps, counted from 0")
+    return out
 
 
 def phase_kernel_e(dev, planes, cfg, tex) -> float:
@@ -1873,6 +1998,7 @@ def phase_drivers(dev, gpu) -> dict:
         loss_and_grad,
         render_for_params,
     )
+    from cpuperformanceraytracer_tpu_torch.kernels.adam import adam
     from cpuperformanceraytracer_tpu_torch.kernels.backward import bwd_tables
     from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
     from cpuperformanceraytracer_tpu_torch.kernels.env_backward import env_backward
@@ -1898,7 +2024,7 @@ def phase_drivers(dev, gpu) -> dict:
 
     kernels = {"render_planes": render_planes, "env_accumulate": env_accumulate,
                "bwd_tables": bwd_tables, "env_backward": env_backward,
-               "tonemap": tonemap}
+               "tonemap": tonemap, "adam": adam}
 
     def counted(path, fn, need):
         """``fn()`` with the kernels' launch counts set to 0 just before it
@@ -1978,7 +2104,8 @@ def phase_drivers(dev, gpu) -> dict:
     # config 4: albedos and all 131072 texels at 256x144, 200 steps
     inv, launches["env_inverse"] = counted(
         "env_inverse", lambda: inverse_env(DEMO, tex),
-        ("render_planes", "env_accumulate", "bwd_tables", "env_backward"))
+        ("render_planes", "env_accumulate", "bwd_tables", "env_backward",
+         "adam"))
     if not (inv["loss_last"] < inv["loss_first"] and inv["params_finite"]):
         raise AssertionError(f"env inverse: loss {inv['loss_first']} -> "
                              f"{inv['loss_last']}, finite "
@@ -1998,9 +2125,14 @@ def phase_drivers(dev, gpu) -> dict:
         raise AssertionError(f"env inverse gradients vs plain path: "
                              f"{held['inverse_grads_rel_l2']}")
     del got, want
-    # the same 200 steps on the plain path on the card
-    plain = inverse_env(DEMO.replace(backend="torch"), tex, warm_chunks=0,
-                        timed_chunks=1, device=dev)
+    # the same 200 steps on the plain path on the card, torch's own Adam
+    plain, plain_launches = counted(
+        "env_inverse_plain", lambda: inverse_env(
+            DEMO.replace(backend="torch"), tex, warm_chunks=0,
+            timed_chunks=1, device=dev), ())
+    if any(plain_launches.values()):
+        raise AssertionError(f"env inverse, plain path: kernels launched "
+                             f"{plain_launches}")
     if not (plain["loss_last"] < plain["loss_first"]
             and plain["params_finite"]):
         raise AssertionError(f"env inverse, plain path: loss "
@@ -2263,6 +2395,7 @@ def main() -> int:
     c = phase_kernel_c(dev, tables, cfg, builds[0].log)
     d = phase_kernel_d(dev, planes, gi, tex)
     t = phase_training(dev, scene, cam, tex, cfg, gpu)
+    adam_numbers = phase_kernel_adam(dev)
 
     # ---- phases 9-13: the textured multi-sample path ---------------------
     err_e = phase_kernel_e(dev, planes, cfg, tex)
@@ -2364,6 +2497,12 @@ def main() -> int:
              launches_by_path={"textured": x["launches"]["tonemap"],
                                **drv_launches("tonemap")},
              **x["g"]),
+        *(dict(name=f"adam_{cell}",
+               source="cpuperformanceraytracer_tpu_torch/csrc/adam.cu",
+               replaces=None, max_abs_err=0.0,
+               launches_by_path={**t["adam_launches"],
+                                 **drv_launches("adam")}, **numbers)
+          for cell, numbers in adam_numbers.items()),
         *probe_rows,
     ]
     for r in rows:

@@ -7,7 +7,11 @@ square root of the bias-corrected second moment, as optax's ``adam``
 does); each step renders, takes the L2 pixel gradient and updates the
 parameters in place. ``make_train_step_k`` runs K steps in one dispatch,
 as the JAX ``lax.scan``: on the card one CUDA graph of the K steps and
-their Adam updates (``capturable=True``), on the CPU a loop.
+their Adam updates (``capturable=True``), on the CPU a loop. On the card
+(``backend == "cuda"``) a ``torch.optim.Adam``'s update is one
+hand-written kernel (``kernels/adam.adam_step``), bit-equal to torch's
+capturable step; on the CPU, on the plain route (``backend == "torch"``)
+and for any other optimizer, it is ``optimizer.step()``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from cpuperformanceraytracer_tpu_torch.diff.grad import (
     image_loss,
     render_for_params,
 )
+from cpuperformanceraytracer_tpu_torch.kernels.adam import adam_step
 from cpuperformanceraytracer_tpu_torch.utils import profiling
 
 
@@ -50,10 +55,17 @@ def make_train_step(problem: InverseProblem, optimizer,
     With tracing on, a step is four phases (``utils/profiling.phases``):
     ``step.render`` (the gradients' reset, the parameters' packing,
     kernels A and B), ``step.loss``, ``step.backward`` (the loss's
-    backward, kernels C and D and their glue) and ``step.adam``.
+    backward, kernels C and D and their glue) and ``step.adam`` (with
+    ``backend == "cuda"``, a ``torch.optim.Adam`` over CUDA leaves steps
+    through the kernel of ``kernels/adam.py``, which raises for what it
+    does not implement, ``capturable=False`` among it; otherwise, as on
+    the plain route, ``optimizer.step()``).
     """
     quad_tbl = fixed_quad_table(problem.scene)
     device = problem.target.device
+    leaf = optimizer.param_groups[0]["params"][0]
+    adam_kernel = (type(optimizer) is torch.optim.Adam and leaf.is_cuda
+                   and problem.cfg.backend == "cuda")
 
     def train_step(params: Dict, step) -> torch.Tensor:
         steps = profiling.phases(device)
@@ -67,7 +79,10 @@ def make_train_step(problem: InverseProblem, optimizer,
         with steps.phase("step.backward"):
             loss.backward()
         with steps.phase("step.adam"):
-            optimizer.step()
+            if adam_kernel:
+                adam_step(optimizer)
+            else:
+                optimizer.step()
         return loss.detach()
 
     return train_step

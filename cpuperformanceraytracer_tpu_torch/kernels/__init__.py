@@ -4,8 +4,9 @@
 sample), ``env_backward`` (kernel D, the env cotangents and texel
 scatter), ``env_gather`` (kernel E, the deferred env lookup of every
 mode and the texel fetch), ``combine`` (kernel F, the multi-sample
-combine and accumulate), ``tonemap`` (kernel G, the display transform);
-``_build`` compiles ``csrc/*.cu`` and loads the library (at first use,
+combine and accumulate), ``tonemap`` (kernel G, the display transform),
+``adam`` (Adam's update of every trained leaf in one launch); ``_build``
+compiles ``csrc/*.cu`` and loads the library (at first use,
 never at import)."""
 
 from cpuperformanceraytracer_tpu_torch.kernels.combine import (  # noqa: F401

@@ -114,6 +114,12 @@ _SIGNATURES = {
         _F, _F,                           # inv_spp blend
         _P,                               # stream
     ],
+    "cprt_adam": [
+        _P, _I,                           # leaves (n, 6) int64 on the host, n
+        _F, _F, _F, _F, _F, _F, _F,       # 1/lr beta1 beta2 1-beta1 1-beta2 eps wd
+        _I,                               # maximize
+        _P,                               # stream
+    ],
     "cprt_tonemap": [
         _P, _P, _I, _F,                   # in, out (3, H, W), 3*H*W, exposure
         _P,                               # stream

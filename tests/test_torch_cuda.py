@@ -1213,3 +1213,258 @@ def test_replays_count_the_launches_their_capture_made(cuda_device):
         if device == want or any(device[n] > want[n] for n in names):
             break
     assert device == want
+
+
+# ---- Adam's kernel (kernels/adam.py) ----------------------------------------
+
+# the 720p main path's leaves: albedo, sphere centers, every env texel
+ADAM_720P = ((11, 3), (7, 3), (131072, 3))
+ADAM_OPTIONS = {"default": {}, "eps_1e-2": {"eps": 1e-2},
+                "decay_maximize": {"weight_decay": 0.1, "maximize": True},
+                "beta1_0.3": {"betas": (0.3, 0.9)}}
+
+
+def _adam_pair(dev, layout: str, options: dict, seed: int = 0,
+               lr: float = 0.01):
+    """Two copies of the same leaves, each under its own
+    ``torch.optim.Adam(lr=lr, capturable=True)``. ``main_720p``: the main path's
+    leaf shapes. ``odd_unaligned``: a leaf of 1001 values starting 4 bytes
+    into its buffer, its state made by the optimizer (16-byte aligned), so
+    its arrays are aligned apart. ``odd_shared_offset``: a leaf of 4099
+    values whose param, gradient and state all start 12 bytes into their
+    buffers (a head, 16-byte vectors and a tail)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = {"main_720p": ADAM_720P, "odd_unaligned": ((1001,), (7, 3)),
+              "odd_shared_offset": ((4099,), (11, 3))}[layout]
+    first = [(0.5 + torch.rand(s, device=dev, generator=gen))
+             * torch.where(torch.rand(s, device=dev, generator=gen) < 0.5,
+                           -1.0, 1.0) for s in shapes]
+    offset = {"odd_unaligned": 1, "odd_shared_offset": 3}.get(layout, 0)
+
+    def at_offset(t):
+        buf = torch.empty(t.numel() + offset, device=dev)
+        out = buf[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    copies = []
+    for _ in range(2):
+        leaves = [at_offset(t).requires_grad_() if i == 0 else
+                  t.clone().requires_grad_() for i, t in enumerate(first)]
+        opt = torch.optim.Adam(leaves, lr=lr, capturable=True, **options)
+        if layout == "odd_shared_offset":
+            opt.state[leaves[0]].update(
+                step=torch.zeros((), device=dev),
+                exp_avg=at_offset(torch.zeros_like(first[0])),
+                exp_avg_sq=at_offset(torch.zeros_like(first[0])))
+        copies.append((leaves, opt))
+    grad_at = at_offset if layout == "odd_shared_offset" else (lambda t: t)
+
+    def grads(k: int):
+        g = torch.Generator(device=dev).manual_seed(1000 + k)
+        return [grad_at(torch.randn(s, device=dev, generator=g) * 10.0 ** -(k % 4))
+                if i == 0 else torch.randn(s, device=dev, generator=g)
+                * 10.0 ** -(k % 4) for i, s in enumerate(shapes)]
+
+    return copies, grads
+
+
+def _adam_state_bits(leaves, opt):
+    return [t.detach().clone() for p in leaves
+            for t in (p, *(opt.state[p][k]
+                           for k in ("step", "exp_avg", "exp_avg_sq")))]
+
+
+@pytest.mark.parametrize("lr", [0.001, 0.01, 0.02, 0.05])
+@pytest.mark.parametrize("option", list(ADAM_OPTIONS))
+@pytest.mark.parametrize("layout", ["main_720p", "odd_unaligned",
+                                    "odd_shared_offset"])
+def test_adam_kernel_bit_equal_to_torch_capturable(cuda_device, layout,
+                                                   option, lr):
+    """16 steps of the kernel (``adam_step``) and of
+    ``torch.optim.Adam(capturable=True)`` on the same leaves and gradients:
+    the params, ``step``, ``exp_avg`` and ``exp_avg_sq`` bit-equal after
+    every step (the arrays' alignments: see ``_adam_pair``), at the
+    learning rates of the port's callers (0.01 the default, 0.02 the env
+    demo's) and on either side of them: the kernel multiplies by
+    ``1 / lr`` taken in double, as torch's foreach division does."""
+    from cpuperformanceraytracer_tpu_torch.kernels.adam import adam, adam_step
+
+    copies, grads = _adam_pair(cuda_device, layout, ADAM_OPTIONS[option],
+                               lr=lr)
+    (got, opt_got), (want, opt_want) = copies
+    before = adam.launches
+    for k in range(16):
+        for a, b, g in zip(got, want, grads(k)):
+            a.grad, b.grad = g, g.clone()   # the kernel's keeps its layout
+        adam_step(opt_got)
+        opt_want.step()
+        torch.cuda.synchronize()
+        for i, (x, y) in enumerate(zip(_adam_state_bits(got, opt_got),
+                                       _adam_state_bits(want, opt_want))):
+            assert _bits_equal(x, y), (k, i, (x != y).sum().item())
+    assert adam.launches - before == 16
+
+
+@pytest.mark.parametrize("option", list(ADAM_OPTIONS))
+@pytest.mark.parametrize("layout", ["main_720p", "odd_shared_offset"])
+def test_adam_kernel_matches_its_plain_version(cuda_device, layout, option):
+    """16 steps of the kernel and of its plain version
+    (``adam_reference``, torch ops) on the card, from the same leaves and
+    gradients: the tolerances of the plain version's CPU test
+    (``tests/test_torch_adam.py``), params rtol 1e-6, the moments rtol
+    1e-6 with an atol of 1e-6 of their largest value. The plain version
+    rounds ``(1 - beta2) * g * g`` before adding it, where the kernel
+    fuses the multiply-add as torch does, so the last bits may differ."""
+    from cpuperformanceraytracer_tpu_torch.kernels.adam import (
+        adam_reference,
+        adam_step,
+    )
+
+    options = ADAM_OPTIONS[option]
+    copies, grads = _adam_pair(cuda_device, layout, options)
+    (got, opt_got), (want, opt_want) = copies
+    beta1, beta2 = options.get("betas", (0.9, 0.999))
+    hyper = dict(lr=0.01, beta1=beta1, beta2=beta2,
+                 eps=options.get("eps", 1e-8),
+                 weight_decay=options.get("weight_decay", 0.0),
+                 maximize=options.get("maximize", False))
+    with torch.no_grad():
+        for p in want:
+            state = opt_want.state[p]
+            state.setdefault("step", torch.zeros((), device=cuda_device))
+            state.setdefault("exp_avg", torch.zeros_like(p))
+            state.setdefault("exp_avg_sq", torch.zeros_like(p))
+        for k in range(16):
+            for a, b, g in zip(got, want, grads(k)):
+                a.grad = g
+            adam_step(opt_got)
+            states = [opt_want.state[p] for p in want]
+            adam_reference([p.detach() for p in want], grads(k),
+                           [s["exp_avg"] for s in states],
+                           [s["exp_avg_sq"] for s in states],
+                           [s["step"] for s in states], **hyper)
+    for a, b in zip(got, want):
+        sa, sb = opt_got.state[a], opt_want.state[b]
+        assert sa["step"].item() == sb["step"].item() == 16
+        torch.testing.assert_close(a.detach(), b.detach(), rtol=1e-6, atol=0)
+        for k in ("exp_avg", "exp_avg_sq"):
+            torch.testing.assert_close(sa[k], sb[k], rtol=1e-6,
+                                       atol=1e-6 * sb[k].abs().max().item())
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_train_step_on_the_card_picks_adam_by_backend(cuda_device,
+                                                      monkeypatch, backend):
+    """``make_train_step`` on CUDA leaves: with ``backend == "cuda"`` the
+    step's Adam is the kernel (one launch counted, ``torch.optim.Adam.step``
+    never called); on the plain route, ``backend == "torch"``, it is
+    ``optimizer.step()`` (called once, no launch)."""
+    from cpuperformanceraytracer_tpu_torch.diff.inverse import (
+        InverseProblem,
+        make_train_step,
+    )
+    from cpuperformanceraytracer_tpu_torch.kernels.adam import adam
+
+    calls = []
+    real = torch.optim.Adam.step
+
+    def counted(self, *args, **kwargs):
+        calls.append(self)
+        return real(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.optim.Adam, "step", counted)
+    params, target, scene, cam, tex, cfg = _glass_step(cuda_device)
+    cfg = cfg.replace(backend=backend)
+    p = {n: v.detach().clone().requires_grad_() for n, v in params.items()}
+    opt = torch.optim.Adam(list(p.values()), lr=0.01, capturable=True)
+    before = adam.launches
+    make_train_step(InverseProblem(scene, cam, tex, cfg, target), opt)(p, 0)
+    torch.cuda.synchronize()
+    kernel = backend == "cuda"
+    assert (adam.launches - before, calls) == (
+        (1, []) if kernel else (0, [opt]))
+    assert all(opt.state[v]["step"].item() == 1 for v in p.values())
+
+
+def test_adam_kernel_two_calls_equal_bits(cuda_device):
+    """The same state and gradients stepped twice from copies: the same
+    bits (no order-dependent arithmetic)."""
+    from cpuperformanceraytracer_tpu_torch.kernels.adam import adam_step
+
+    copies, grads = _adam_pair(cuda_device, "main_720p", {})
+    for leaves, opt in copies:
+        for k in range(3):
+            for p, g in zip(leaves, grads(k)):
+                p.grad = g
+            adam_step(opt)
+    torch.cuda.synchronize()
+    for x, y in zip(_adam_state_bits(*copies[0]), _adam_state_bits(*copies[1])):
+        assert _bits_equal(x, y)
+
+
+@pytest.mark.parametrize("case", ["amsgrad", "not_capturable", "float64_leaf",
+                                  "too_many_leaves"])
+def test_adam_kernel_raises_on_the_card(cuda_device, case):
+    """A CUDA leaf with what the kernel does not implement raises; nothing
+    falls back to torch's step."""
+    from cpuperformanceraytracer_tpu_torch.kernels.adam import MAX_LEAVES, adam_step
+
+    n = MAX_LEAVES + 1 if case == "too_many_leaves" else 2
+    dtype = torch.float64 if case == "float64_leaf" else torch.float32
+    leaves = [torch.ones(5, device=cuda_device, dtype=dtype).requires_grad_()
+              for _ in range(n)]
+    opt = torch.optim.Adam(leaves, capturable=case != "not_capturable",
+                           amsgrad=case == "amsgrad")
+    for p in leaves:
+        p.grad = torch.ones_like(p)
+    with pytest.raises(ValueError):
+        adam_step(opt)
+    assert all(torch.equal(p.detach(), torch.ones_like(p)) for p in leaves)
+
+
+def test_one_replay_of_16_steps_counts_16_adam_launches(cuda_device):
+    """One replay of a K = 16 training graph: 16 launches of Adam's kernel
+    in ``profiling.replayed_launches()``, as many as of kernel A."""
+    from cpuperformanceraytracer_tpu_torch.kernels.adam import adam
+    from cpuperformanceraytracer_tpu_torch.utils import profiling
+
+    step_k, p = _train_graph(cuda_device, k=16)
+    step_k(p, 0)
+    before = profiling.replayed_launches()
+    step_k(p, 16)
+    after = profiling.replayed_launches()
+    torch.cuda.synchronize()
+    made = {n: after.get(n, 0) - before.get(n, 0)
+            for n in (adam.__name__, render_planes.__name__)}
+    assert made == {"adam": 16, "render_planes": 16}
+
+
+def test_zeroing_the_adam_state_restarts_the_job(cuda_device):
+    """As the benchmark's jobs do: the params copied back and every
+    ``optimizer.state[p]`` tensor zeroed in place, a replay of the same
+    frames gives the first dispatch's losses and params, bit for bit."""
+    from cpuperformanceraytracer_tpu_torch.diff.inverse import (
+        InverseProblem,
+        make_train_step_k,
+    )
+
+    params, target, scene, cam, tex, cfg = _glass_step(cuda_device)
+    p = {n: v.detach().clone().requires_grad_() for n, v in params.items()}
+    start = {n: v.detach().clone() for n, v in p.items()}
+    opt = torch.optim.Adam(list(p.values()), lr=0.01, capturable=True)
+    step_k = make_train_step_k(InverseProblem(scene, cam, tex, cfg, target),
+                               opt, 3, resample_frames=True)
+    first = step_k(p, 5).clone()
+    after = {n: v.detach().clone() for n, v in p.items()}
+    step_k(p, 8)
+    with torch.no_grad():
+        for n, v in p.items():
+            v.copy_(start[n])
+            for s in opt.state[v].values():
+                s.zero_()
+    again = step_k(p, 5)
+    torch.cuda.synchronize()
+    assert _bits_equal(first, again)
+    for n in p:
+        assert _bits_equal(after[n], p[n].detach()), n
