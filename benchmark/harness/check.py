@@ -11,6 +11,13 @@ blend weight). A pixel is off when a channel differs by more than
 blend; the number compared is the largest share of pixels off over the
 checked frames.
 
+A checkpoint save: its file, read back with ``numpy.load`` (not the
+program's loader), holds the format's version, the frame the program
+was at, the config's image size and sampling, and planes that equal the
+accumulator the save was handed, bit for bit: a save is a copy. The
+number compared is the share of saves whose file is missing, unreadable
+or different (``save_fault``).
+
 A training dispatch: the reference renders the target and follows the K
 steps with autograd and Adam. Compared: the first step's loss (kernels A
 and B, the target, the loss), and the worst gap, over the parameter
@@ -27,9 +34,13 @@ so they are logged, not compared (``PERF.md``).
 
 from __future__ import annotations
 
+import json
 import math
 import statistics
+import zipfile
+import zlib
 
+import numpy as np
 import torch
 
 from benchmark.reference.tracer import accumulate, frame_blend
@@ -58,6 +69,44 @@ def pixels_off(pre, post, color, frame: int, atol: float) -> float:
     tol = atol + 4.0 * F32_EPS * scale / blend
     off = ~(diff <= tol)
     return off.any(dim=0).double().mean().item()
+
+
+# what a save's config has to say of the render it holds
+SAVE_CONFIG_KEYS = ("width", "height", "spp", "bounces", "rng")
+
+
+def save_fault(path, want: torch.Tensor, frame: int, version: int,
+               opts: dict):
+    """Why the checkpoint at ``path`` is not a whole save of the (3, H, W)
+    float32 accumulator ``want`` at ``frame`` in the format ``version``
+    (an ``.npz`` of ``version``, ``frame``, the planes ``r``, ``g``,
+    ``b`` and ``config``, the JSON of the render's config), or None
+    where it is."""
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            got = {k: z[k] for k in ("version", "frame", "r", "g", "b",
+                                     "config")}
+        cfg = json.loads(str(got["config"]))
+    except FileNotFoundError:
+        return "missing"
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile,
+            zlib.error) as e:
+        return f"unreadable: {type(e).__name__}: {e}"
+    if int(got["version"]) != version:
+        return f"version {got['version']} for {version}"
+    if int(got["frame"]) != frame:
+        return f"frame {got['frame']} for {frame}"
+    bad = [k for k in SAVE_CONFIG_KEYS if cfg.get(k) != opts[k]]
+    if bad:
+        return f"config {bad} differ"
+    planes = want.cpu().numpy()
+    for c, plane in zip("rgb", planes):
+        a = got[c]
+        if (a.dtype != np.float32 or a.shape != plane.shape
+                or not np.array_equal(a.view(np.uint32),
+                                      plane.view(np.uint32))):
+            return f"plane {c} differs"
+    return None
 
 
 def _or_inf(x: float) -> float:

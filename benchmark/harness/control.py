@@ -15,8 +15,13 @@ accumulator as it was), ``half_batch`` (the lower half of the rows left
 out) and ``wrong_frame`` (each checked frame's answer is the next
 frame's). Training cells: ``control`` (the first step in bfloat16) and
 ``half_batch`` (the loss over the upper half of the rows); a state left
-unchanged reads 1 on ``change_gap`` by construction. ``--look`` runs
-the reference against itself over all K steps instead.
+unchanged reads 1 on ``change_gap`` by construction. Checkpointed
+cells: the progressive variants, and on ``saves_off`` a sound reference
+save, ``control`` (the accumulator rounded to bfloat16 before the save)
+and the faults ``stale`` (the interval before's accumulator under the
+new frame), ``wrong_frame`` (the frame index off by one) and ``missing``
+(no file). ``--look`` runs the reference against itself over all K
+steps instead.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ It hands the program the benchmark's inputs (scene, camera, env texels,
 trained parameters) as the program's own types and builds the two entry
 points the window drives: ``OfflineRenderer.step()`` for a progressive
 frame, and one replay of ``make_train_step_k``'s K steps for a training
-dispatch.
+dispatch; and the program's own checkpoint save of a progressive render.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from cpuperformanceraytracer_tpu_torch.diff.inverse import (
     InverseProblem,
     make_train_step_k,
 )
+from cpuperformanceraytracer_tpu_torch.io import checkpoint
 from cpuperformanceraytracer_tpu_torch.render.driver import OfflineRenderer
 from cpuperformanceraytracer_tpu_torch.scene.camera import make_camera
 from cpuperformanceraytracer_tpu_torch.scene.types import (
@@ -89,6 +90,18 @@ class Progressive:
     @property
     def accum(self) -> torch.Tensor:
         return self.renderer.local
+
+    def save(self, path: str) -> None:
+        """The program's checkpoint of the render to ``path``: the
+        renderer's own ``save_checkpoint(path)`` where it has one, else
+        ``io/checkpoint.save_checkpoint`` of its accumulator, frame and
+        config, as ``OfflineRenderer.run`` saves."""
+        r = self.renderer
+        save = getattr(r, "save_checkpoint", None)
+        if save is not None:
+            save(path)
+        else:
+            checkpoint.save_checkpoint(path, r.accum, r.frame, r.cfg)
 
 
 class Train:

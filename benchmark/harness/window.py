@@ -39,9 +39,11 @@ class Session:
     which do nothing here, let the kind watch the window (``before(n)``
     / ``after(n)`` around call n, ``plan(n, elapsed)`` before each
     chunk, whose first call is n; while ``pending()`` is true the window
-    goes on past its seconds). After the window ``release()`` frees the
-    program's state, and ``check(inputs, cell, log)`` compares what the
-    calls produced with the reference."""
+    goes on past its seconds; ``drain()`` waits, inside the window, for
+    what the calls started on the host, such as files being written).
+    After the window ``release()`` frees the program's state, and
+    ``check(inputs, cell, log)`` compares what the calls produced with
+    the reference."""
 
     steps_per_call = 1
 
@@ -56,6 +58,9 @@ class Session:
 
     def pending(self) -> bool:
         return False
+
+    def drain(self) -> None:
+        pass
 
 
 class Clock:
@@ -110,6 +115,7 @@ def run_window(session: Session, seconds: float, chunk: int,
                 clock.wait(ends.popleft())
             if time.perf_counter() - t0 >= seconds and not session.pending():
                 break
+        session.drain()
         clock.sync()
         elapsed = time.perf_counter() - t0
     finally:

@@ -1,7 +1,7 @@
 """On the card (marker ``cuda``; each test skips without one): one short
 run of every cell prints a result line that keeps the contract, and the
-lower-precision control fails the limits of a progressive cell at its
-own size. Run on the card with
+lower-precision control fails the limits of a progressive cell and of
+the checkpoint saves at their own size. Run on the card with
 
     python -m pytest -p no:cacheprovider benchmark/tests/test_bench_card.py
 """
@@ -65,4 +65,15 @@ def test_the_control_fails_at_the_cells_size(card):
     got = load_module("kinds", "progressive").variants(inputs, c.checks,
                                                        [0, 500])
     limit = c.checks["limits"]["pixels_off"]
+    assert all(v > limit for v in got.values()), got
+
+
+def test_the_save_control_fails_at_the_cells_size(card):
+    """The sound save reads 0 at 3840x2160; the control (the accumulator
+    rounded to bfloat16) and each planted fault read above the limit."""
+    c = load_cell("offline_4k.checkpointed")
+    inputs = make_inputs(c, 2 ** 31 + 7, card)
+    got = load_module("kinds", "checkpointed").save_variants(inputs, c)
+    assert got.pop("sound") == 0.0
+    limit = c.checks["limits"]["saves_off"]
     assert all(v > limit for v in got.values()), got

@@ -5,7 +5,8 @@ skipped, the program's plain-PyTorch kernels in place of the CUDA ones,
 a small image): it comes out correct as it stands, and not correct with
 the timed path broken underneath in each way the cell can break: a call
 that leaves its state unchanged, half of the batch left out, an answer
-altered where it is produced. The lower-precision control (the
+altered where it is produced, and a checkpoint saved stale, under the
+wrong frame, not at all, or rounded to bfloat16. The lower-precision control (the
 reference in bfloat16 in the program's place) fails the cells' limits.
 """
 
@@ -14,26 +15,32 @@ import time
 import pytest
 import torch
 
-from benchmark.harness import check, main, port, window
+from benchmark.harness import check, main, port, spec, window
 from benchmark.harness.inputs import make_inputs
 from benchmark.harness.spec import load_cell, load_module, load_spec
 from cpuperformanceraytracer_tpu_torch.diff import inverse
+from cpuperformanceraytracer_tpu_torch.io import checkpoint
 from cpuperformanceraytracer_tpu_torch.render import driver
 
 CPU = torch.device("cpu")
 CELLS = [w["name"] for w in load_spec()["workloads"]]
 PROGRESSIVE = [c for c in CELLS if load_cell(c).traffic["kind"] == "progressive"]
 TRAIN = [c for c in CELLS if load_cell(c).traffic["kind"] == "train"]
+CHECKPOINTED = [c for c in CELLS
+                if load_cell(c).traffic["kind"] == "checkpointed"]
 
 
 def small_cell(name):
     """The cell at 32x16, 2 bounces, a 16x8 env map, and two samples
-    where it has several."""
+    where it has several; a save every 8 frames where it saves."""
     cell = load_cell(name)
     render = cell.config["render"]
     render.update(width=32, height=16, bounces=2,
                   spp=min(render["spp"], 2))
     cell.config["env"] = dict(cell.config["env"], width=16, height=8)
+    if "save_every" in cell.traffic:
+        cell.traffic.update(save_every=8, calls_per_chunk=8, held_calls=2,
+                            trace_calls=8)
     return cell
 
 
@@ -54,9 +61,11 @@ class HostClock:
 
 
 @pytest.fixture
-def on_cpu(monkeypatch):
+def on_cpu(monkeypatch, tmp_path):
     """A run at the small size, the program's plain-PyTorch kernels in
-    place of its CUDA ones, timed by the host clock."""
+    place of its CUDA ones, timed by the host clock, its saves under a
+    directory of its own."""
+    monkeypatch.setattr(spec, "ROOT", tmp_path)
     monkeypatch.setattr(main, "load_cell", small_cell)
     monkeypatch.setattr(port, "BACKEND", "torch")
     monkeypatch.setattr(window, "Clock", HostClock)
@@ -94,12 +103,48 @@ def _next_frame(self):
     self.frame += 1
 
 
-@pytest.mark.parametrize("cell", PROGRESSIVE)
+@pytest.mark.parametrize("cell", PROGRESSIVE + CHECKPOINTED)
 @pytest.mark.parametrize("fault", [_unchanged_frame, _half_frame, _next_frame],
                          ids=["unchanged", "half_batch", "wrong_frame"])
 def test_a_broken_frame_is_not_correct(cell, fault, monkeypatch, on_cpu):
     monkeypatch.setattr(driver.OfflineRenderer, "step", fault)
     assert not _run(cell)["correct"]
+
+
+def _stale_save(self, path):
+    """The accumulator of the save before (zeros before the first) under
+    the new frame."""
+    r = self.renderer
+    prev = getattr(self, "_prev", torch.zeros_like(r.accum))
+    checkpoint.save_checkpoint(path, prev, r.frame, r.cfg)
+    self._prev = r.accum.clone()
+
+
+def _wrong_frame_save(self, path):
+    r = self.renderer
+    checkpoint.save_checkpoint(path, r.accum, r.frame + 1, r.cfg)
+
+
+def _missing_save(self, path):
+    pass
+
+
+def _bfloat16_save(self, path):
+    r = self.renderer
+    checkpoint.save_checkpoint(path, r.accum.to(torch.bfloat16).float(),
+                               r.frame, r.cfg)
+
+
+@pytest.mark.parametrize("cell", CHECKPOINTED)
+@pytest.mark.parametrize("fault", [_stale_save, _wrong_frame_save,
+                                   _missing_save, _bfloat16_save],
+                         ids=["stale", "wrong_frame", "missing", "bfloat16"])
+def test_a_broken_save_is_not_correct(cell, fault, monkeypatch, on_cpu):
+    monkeypatch.setattr(port.Progressive, "save", fault)
+    result = _run(cell)
+    assert not result["correct"], result["checks"]
+    assert result["checks"]["saves_off"]["value"] > 0
+    assert result["checks"]["pixels_off"]["value"] == 0
 
 
 def _half_loss(a, b):
@@ -144,6 +189,22 @@ def test_the_control_fails_a_frame(cell):
                                                        [0, 3])
     limit = c.checks["limits"]["pixels_off"]
     assert all(v > limit for v in got.values()), got
+
+
+@pytest.mark.parametrize("cell", CHECKPOINTED)
+def test_the_control_fails_a_save(cell, monkeypatch, tmp_path):
+    """The sound reference save reads 0; the control and each planted
+    fault fail one of the cell's numbers."""
+    monkeypatch.setattr(spec, "ROOT", tmp_path)
+    c = small_cell(cell)
+    inputs = make_inputs(c, 5, CPU)
+    got = load_module("kinds", "checkpointed").control(inputs, c)
+    limits = c.checks["limits"]
+    assert got.pop("sound") == {"saves_off": 0.0}
+    assert {k for k, v in got.items() if "saves_off" in v} == {
+        "stale", "wrong_frame", "missing", "control"}
+    for variant, nums in got.items():
+        assert any(v > limits[k] for k, v in nums.items()), (variant, nums)
 
 
 @pytest.mark.parametrize("cell", TRAIN)

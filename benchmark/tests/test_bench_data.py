@@ -70,7 +70,7 @@ def test_cell_resolves_to_its_files(cell):
     c = load_cell(cell)
     assert c.config["name"] == next(w["config"] for w in SPEC["workloads"]
                                     if w["name"] == cell)
-    assert c.traffic["kind"] in ("progressive", "train")
+    assert c.traffic["kind"] in ("progressive", "train", "checkpointed")
     assert c.checks["limits"]
     reported = {m["name"] for m in c.end_to_end}
     assert "setup_s" in reported and len(reported) >= 2
@@ -86,6 +86,71 @@ def test_every_per_layer_metric_names_cells_that_report_its_target():
     for m in SPEC["per_layer"]:
         for c in m["workloads"]:
             assert m["moves"] in cells[c], (m["name"], c)
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
+def test_a_config_file_states_what_was_cut(config):
+    """A configuration's file holds its entry's source and ``reduced``,
+    and each reduced key beside what it was cut from."""
+    entry = next(c for c in SPEC["configs"] if c["name"] == config)
+    cfg = json.loads((ROOT / entry["file"]).read_text())
+    assert cfg["name"] == config and cfg["source"] == entry["source"]
+    assert cfg["reduced"] == entry["reduced"]
+    for key in cfg["reduced"]:
+        assert key in cfg and cfg["reductions"][key]
+
+
+def test_offline_4k_is_the_glass_scene_at_4k():
+    """Config 5 renders the glass scene, its camera and its env settings
+    as ``glass_720p`` does, at 3840x2160 with the counter RNG."""
+    glass = json.loads((ROOT / "benchmark/configs/glass_720p.json")
+                       .read_text())
+    cfg = json.loads((ROOT / "benchmark/configs/offline_4k.json")
+                     .read_text())
+    assert cfg["scene"] == glass["scene"] and cfg["env"] == glass["env"]
+    r = cfg["render"]
+    assert {k for k in glass["render"] if r[k] != glass["render"][k]} == {
+        "width", "height", "rng"}
+    assert (r["width"], r["height"], r["spp"], r["bounces"], r["rng"],
+            r["roulette"]) == (3840, 2160, 1, 8, "counter", "v4_quirk")
+
+
+@pytest.mark.parametrize("mix", sorted({w["traffic"]
+                                        for w in SPEC["workloads"]}))
+def test_a_mix_names_a_kind_with_its_hooks(mix):
+    t = json.loads((ROOT / f"benchmark/traffic/{mix}.json").read_text())
+    kind = load_module("kinds", t["kind"])
+    assert issubclass(kind.Session, window.Session)
+    assert all(callable(getattr(kind, f))
+               for f in ("draw", "launches", "control"))
+    assert all(t[k] >= 1 for k in ("calls_per_chunk", "chunks_in_flight",
+                                   "held_calls", "trace_calls"))
+
+
+def test_the_checkpointed_mix_saves_at_each_chunks_end():
+    """Each chunk of the window ends with a save, so the window, which
+    ends only at a chunk's end, holds whole intervals; the stream-held
+    calls after it (and the one before them) make no save, since a save
+    waits for the device and would drain the held stream; the traced
+    calls hold one interval and its save."""
+    t = json.loads((ROOT / "benchmark/traffic/checkpointed.json")
+                   .read_text())
+    assert t["calls_per_chunk"] == t["save_every"] == t["trace_calls"]
+    assert t["held_calls"] + 1 < t["save_every"]
+    assert t["min_saves"] >= 2 and t["save_wait_s"] > 0
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_the_checks_limit_every_number_the_kind_compares(cell):
+    c = load_cell(cell)
+    numbers = {"progressive": {"pixels_off"},
+               "checkpointed": {"pixels_off", "saves_off"},
+               "train": {"loss_gap", "change_gap"}}[c.traffic["kind"]]
+    assert set(c.checks["limits"]) == numbers
+    if c.traffic["kind"] == "checkpointed":
+        # a save is a copy: compared exactly, in the format's version 1
+        assert c.checks["limits"]["saves_off"] == 0
+        assert c.checks["format_version"] == 1
 
 
 @pytest.mark.parametrize("kernel", ["kernel_a", "kernel_b", "kernel_c",
@@ -158,6 +223,12 @@ def test_inputs_follow_the_seed(cell):
     assert a.tex.shape == d.tex.shape and a.opts == d.opts
     if c.traffic["kind"] == "progressive":
         assert a.check_fractions == b.check_fractions
+    elif c.traffic["kind"] == "checkpointed":
+        t = c.traffic
+        assert a.check_frames == b.check_frames
+        assert len(a.check_frames) == len(d.check_frames)
+        assert all(0 < f < t["min_saves"] * t["save_every"]
+                   for f in a.check_frames + d.check_frames)
     else:
         assert all(torch.equal(a.params0[k], b.params0[k]) for k in a.params0)
         assert a.frame0 == b.frame0

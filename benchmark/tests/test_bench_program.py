@@ -16,7 +16,8 @@ from benchmark.harness.trace import Trace
 
 ROOT = Path(__file__).resolve().parents[2]
 SPEC = load_spec()
-PROGRESSIVE = ["glass_720p.progressive", "textured_1080.progressive"]
+PROGRESSIVE = ["glass_720p.progressive", "textured_1080.progressive",
+               "offline_4k.progressive"]
 TRAIN = ["glass_720p.train", "textured_1080.train"]
 LAYER = {"driver": "driver (render/driver.py)",
          "dispatch": "K-step dispatch (diff/inverse.py, diff/graph.py)",
