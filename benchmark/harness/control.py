@@ -13,9 +13,10 @@ them. Progressive cells: ``control`` (the checked frames rendered in
 bfloat16), and the faults ``unchanged`` (a frame that leaves the
 accumulator as it was), ``half_batch`` (the lower half of the rows left
 out) and ``wrong_frame`` (each checked frame's answer is the next
-frame's). Training cells: ``control`` (the first step in bfloat16) and
-``half_batch`` (the loss over the upper half of the rows); a state left
-unchanged reads 1 on ``change_gap`` by construction. Checkpointed
+frame's). Training cells, on ``loss_gap`` and ``grad_gap``: ``control``
+(the first step in bfloat16) and ``half_batch`` (the loss over the upper
+half of the rows); a state left unchanged reads 1 on ``change_gap`` by
+construction. Checkpointed
 cells: the progressive variants, and on ``saves_off`` a sound reference
 save, ``control`` (the accumulator rounded to bfloat16 before the save)
 and the faults ``stale`` (the interval before's accumulator under the

@@ -3,10 +3,11 @@ seed, on the device.
 
 Both sides get these same inputs: the program through its public API
 (``port.py``), the reference as plain tensors. The seed places the env
-map's sun, starts the trained parameters off the truth, picks the
-training run's frames, and picks which of the window's frames are
-checked. It changes no size: every seed renders the same resolution,
-samples and bounces, and trains the same parameters.
+map's sun (unless the mix fixes it with ``env_sun``), starts the trained
+parameters off the truth, picks the training run's frames, and picks
+which of the window's frames are checked. It changes no size: every seed
+renders the same resolution, samples and bounces, and trains the same
+parameters.
 """
 
 from __future__ import annotations
@@ -32,14 +33,17 @@ def generator(seed: int, device) -> torch.Generator:
 
 
 def gradient_sky(width: int, height: int, gen: torch.Generator,
-                 device) -> torch.Tensor:
+                 device, sun=None) -> torch.Tensor:
     """(3, H*W) planes of a smooth sky, row-major from the top row: a
     vertical gradient with a horizontal hue swing and a bright sun blob
     (values up to about 20) whose place is drawn from ``gen``, as the
     program's ``texture/procedural.gradient_sky`` draws it from its
-    seed."""
+    seed, or is ``sun`` = (u, v) where given (the draw is still made, so
+    what is drawn after it does not move)."""
     su, sv = torch.rand(2, generator=gen, device=device).tolist()
     su, sv = 0.2 + 0.6 * su, 0.5 + 0.4 * sv
+    if sun is not None:
+        su, sv = (float(x) for x in sun)
     v = torch.linspace(0.0, 1.0, height, device=device)[:, None]
     u = torch.linspace(0.0, 1.0, width, device=device)[None, :]
     sun = 18.0 * torch.exp(-((u - su) ** 2 + (v - sv) ** 2) / 0.005)
@@ -82,7 +86,8 @@ def make_inputs(cell, seed: int, device) -> Inputs:
                          "stochastic sampling")
     gen = generator(seed, device)
     env = cell.config["env"]
-    tex = gradient_sky(env["width"], env["height"], gen, device)
+    tex = gradient_sky(env["width"], env["height"], gen, device,
+                       cell.traffic.get("env_sun"))
     scene = scene_tensors(cell.config["scene"], device)
     kind = load_module("kinds", cell.traffic["kind"])
     return Inputs(opts=opts, scene=scene, tex=tex, tex_w=env["width"],

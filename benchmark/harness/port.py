@@ -5,7 +5,8 @@ It hands the program the benchmark's inputs (scene, camera, env texels,
 trained parameters) as the program's own types and builds the two entry
 points the window drives: ``OfflineRenderer.step()`` for a progressive
 frame, and one replay of ``make_train_step_k``'s K steps for a training
-dispatch; and the program's own checkpoint save of a progressive render.
+dispatch; the program's own checkpoint save of a progressive render; and
+a training problem's gradient through the call a training step makes.
 """
 
 from __future__ import annotations
@@ -14,7 +15,12 @@ import torch
 
 from cpuperformanceraytracer_tpu_torch.config import RenderConfig
 from cpuperformanceraytracer_tpu_torch.core.vecmath import Vec3
-from cpuperformanceraytracer_tpu_torch.diff.grad import render_for_params
+from cpuperformanceraytracer_tpu_torch.diff.grad import (
+    fixed_quad_table,
+    image_loss,
+    render_for_params,
+    value_and_grad,
+)
 from cpuperformanceraytracer_tpu_torch.diff.inverse import (
     InverseProblem,
     make_train_step_k,
@@ -104,6 +110,18 @@ class Progressive:
             checkpoint.save_checkpoint(path, r.accum, r.frame, r.cfg)
 
 
+def train_problem(inputs, device) -> InverseProblem:
+    """The program's inverse-render problem: its scene, camera, texture
+    and config from the inputs, and the target it renders at the inputs'
+    ``target_frame``."""
+    scene, camera, tex = program_scene(inputs, device)
+    cfg = render_config(inputs.opts)
+    with torch.no_grad():
+        target = render_for_params({}, scene, camera, tex, cfg,
+                                   inputs.target_frame)
+    return InverseProblem(scene, camera, tex, cfg, target)
+
+
 class Train:
     """Inverse-rendering jobs with Adam: ``call()`` enqueues one dispatch of
     K training steps (one replay of the captured graph on the card; the
@@ -111,14 +129,10 @@ class Train:
     new job starts from the same parameters: they and Adam's state are
     put back in place, as ``make_train_step_k`` puts them back after its
     capture, and the graph is reused. ``losses`` holds the (K,) losses of
-    the last call."""
+    the last call; ``problem`` is its ``train_problem``."""
 
     def __init__(self, inputs, traffic, device):
-        scene, camera, tex = program_scene(inputs, device)
-        cfg = render_config(inputs.opts)
-        with torch.no_grad():
-            target = render_for_params({}, scene, camera, tex, cfg,
-                                       inputs.target_frame)
+        self.problem = train_problem(inputs, device)
         self.start = {k: v.detach().clone() for k, v in inputs.params0.items()}
         self.params = {k: v.clone().requires_grad_()
                        for k, v in self.start.items()}
@@ -128,9 +142,8 @@ class Train:
         self.k = traffic["steps_per_dispatch"]
         self.steps_per_call = self.k
         self.per_job = traffic["dispatches_per_job"]
-        self.step_k = make_train_step_k(
-            InverseProblem(scene, camera, tex, cfg, target), self.optimizer,
-            self.k, resample_frames=True)
+        self.step_k = make_train_step_k(self.problem, self.optimizer, self.k,
+                                        resample_frames=True)
         self.next_frame = inputs.frame0
         self.calls = 0
         self.losses = None
@@ -148,3 +161,16 @@ class Train:
         self.losses = self.step_k(self.params, self.next_frame)
         self.next_frame += self.k
         self.calls += 1
+
+
+def gradients(problem, params: dict, frame: int) -> tuple:
+    """(loss, {name: gradient}) of ``problem``'s L2 loss at ``params`` and
+    ``frame``, through the call ``make_train_step`` makes (the program's
+    ``render_for_params`` with its own config and the scene's fixed quad
+    table, then ``image_loss``): the kernels of a training step (A to D),
+    called eagerly rather than replayed from the graph."""
+    quad_tbl = fixed_quad_table(problem.scene)
+    return value_and_grad(
+        lambda p: image_loss(render_for_params(
+            p, problem.scene, problem.camera, problem.texture, problem.cfg,
+            frame, quad_tbl), problem.target), params)

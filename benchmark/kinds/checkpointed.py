@@ -47,6 +47,9 @@ from benchmark.reference.tracer import (
 progressive = load_module("kinds", "progressive")
 launches = progressive.launches
 
+# the numbers the cell's checks limit
+COMPARES = ("pixels_off", "saves_off")
+
 # the control's save and its planted faults (``save_variants``)
 SAVE_VARIANTS = ("sound", "stale", "wrong_frame", "missing", "control")
 

@@ -23,6 +23,9 @@ from benchmark.reference.tracer import (
     tables,
 )
 
+# the numbers the cell's checks limit
+COMPARES = ("pixels_off",)
+
 
 def draw(cell, gen: torch.Generator, device, scene: dict,
          tex: torch.Tensor) -> dict:

@@ -7,7 +7,12 @@ The set-up's first dispatch, the window's own call on the same state,
 captures the graph and is the one judged: the reference renders the
 target and follows its K steps with autograd and Adam
 (``check.reference_train``), and ``check.compare_train`` compares the
-first step's loss and each parameter leaf's change.
+first step's loss and each parameter leaf's change. After the window the
+program's gradient of that first step's loss (``port.gradients``: the
+call a step makes, run eagerly) is compared with the reference's first
+gradient (``grad_gap``; the reference takes it in float64 too, to find
+the leaves that swing with single bright paths). A step renders the
+mix's ``spp`` samples.
 """
 
 from __future__ import annotations
@@ -15,6 +20,9 @@ from __future__ import annotations
 import torch
 
 from benchmark.harness import check, window
+
+# the numbers the cell's checks limit
+COMPARES = ("loss_gap", "change_gap", "grad_gap")
 
 
 def draw(cell, gen: torch.Generator, device, scene: dict,
@@ -46,16 +54,16 @@ def draw(cell, gen: torch.Generator, device, scene: dict,
 
 
 def launches(opts: dict, traffic: dict) -> dict:
-    """{work file: launches a dispatch}: A, C and D once a sample of each
-    of the K steps, B once a step."""
-    k = traffic["steps_per_dispatch"]
-    return {"kernel_a": k * opts["spp"], "kernel_b": k,
-            "kernel_c": k * opts["spp"], "kernel_d": k * opts["spp"]}
+    """{work file: launches a dispatch}: A, B, C and D once a sample of
+    each of the K steps."""
+    n = traffic["steps_per_dispatch"] * opts["spp"]
+    return {"kernel_a": n, "kernel_b": n, "kernel_c": n, "kernel_d": n}
 
 
 class Session(window.Session):
     """The program's training loop with its first dispatch run (which
-    captures the graph) and its losses and parameters kept."""
+    captures the graph) and its losses and parameters kept; its problem
+    (scene, texture, target) outlives the loop for the gradient's check."""
 
     def __init__(self, inputs, cell, seconds: float, device):
         from benchmark.harness import port
@@ -65,6 +73,7 @@ class Session(window.Session):
         self.first = {"losses": self.program.losses.clone(),
                       "params": {k: v.detach().clone()
                                  for k, v in self.program.params.items()}}
+        self.problem = self.program.problem
         self.call = self.program.call
         self.steps_per_call = self.program.steps_per_call
 
@@ -72,24 +81,37 @@ class Session(window.Session):
         self.program = self.call = None
 
     def check(self, inputs, cell, log):
-        """(the gaps of the first dispatch from the reference's K steps,
-        the reference's live paths a launch)."""
+        """(the gaps of the first dispatch and of the program's first
+        gradient from the reference's K steps, the reference's live paths
+        a launch)."""
+        from benchmark.harness import port
+
+        loss, grads = port.gradients(self.problem, inputs.params0,
+                                     inputs.frame0)
+        self.problem = None
+        prog = dict(self.first, grads=grads)
         live = []
-        got = check.compare_train(inputs, self.first, check.reference_train(
-            inputs, cell.traffic, live=live))
+        got = check.compare_train(inputs, prog, check.reference_train(
+            inputs, cell.traffic, live=live, witness=True))
+        first = float(self.first["losses"][0])
         log("train gaps: " + str({k: got[k] for k in (
-            "step_loss_gaps", "leaf_change_gaps", "leaf_grad_norms",
-            "leaves_compared")}))
-        counts = {"live_per_launch": float(sum(live)), "texels_per_launch": 0}
+            "step_loss_gaps", "leaf_change_gaps", "leaf_grad_gaps",
+            "leaf_grad_swings", "leaf_grad_norms", "leaves_compared",
+            "grad_leaves_compared")})
+            + f"; the eager step's loss {float(loss)!r}, the graph's first "
+            f"{first!r}")
+        counts = {"live_per_launch": sum(live) / inputs.opts["spp"],
+                  "texels_per_launch": 0}
         return got, counts
 
 
 def variants(inputs, traffic: dict) -> dict:
-    """{variant: {"loss_gap": gap}} of the first step's loss: the control
-    (the reference in bfloat16 in the program's place) and half of the
-    batch left out. A state left unchanged reads 1 on ``change_gap`` by
-    construction."""
-    ref = check.reference_train(inputs, traffic, steps=1)
+    """{variant: {"loss_gap": gap, "grad_gap": gap}} of the first step:
+    the control (the reference in bfloat16 in the program's place) and
+    half of the batch left out. A state left unchanged reads 1 on
+    ``change_gap`` by construction; a gradient at the wrong scale is
+    planted in the program's backward by the card test."""
+    ref = check.reference_train(inputs, traffic, steps=1, witness=True)
     h = inputs.opts["height"]
     got = {
         "control": check.reference_train(inputs, traffic, torch.bfloat16,
@@ -97,7 +119,8 @@ def variants(inputs, traffic: dict) -> dict:
         "half_batch": check.reference_train(inputs, traffic, rows=h // 2,
                                             steps=1),
     }
-    return {k: {"loss_gap": check.compare_train(inputs, v, ref)["loss_gap"]}
+    return {k: {n: check.compare_train(inputs, v, ref)[n]
+                for n in ("loss_gap", "grad_gap")}
             for k, v in got.items()}
 
 
@@ -105,14 +128,16 @@ def self_gaps(inputs, traffic: dict) -> dict:
     """The reference against itself over all K steps of a dispatch, once
     in blocks of rows and once in half-size blocks (the same arithmetic,
     summed in another order): the per-step loss gaps and, per leaf, the
-    gaps of the change's norms. What this reads, round-off alone gives."""
+    gaps of the change's norms and of the first gradients. What this
+    reads, round-off alone gives."""
     rows = check.block_rows(traffic, inputs.opts)
     half = max(1, min(rows, inputs.opts["height"]) // 2)
     a = check.reference_train(inputs, traffic, block=rows)
     b = check.reference_train(inputs, traffic, block=half)
     got = check.compare_train(inputs, a, b)
     return {"loss_gaps": got["step_loss_gaps"],
-            "change_gaps": got["leaf_change_gaps"]}
+            "change_gaps": got["leaf_change_gaps"],
+            "grad_gaps": got["leaf_grad_gaps"]}
 
 
 def control(inputs, cell, look: bool = False) -> dict:

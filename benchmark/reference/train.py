@@ -1,13 +1,16 @@
 """The plain reference of the inverse-render training step: the L2 pixel
-loss of a one-sample frame against a target, its gradient by autograd
-through ``tracer.py``, and Adam.
+loss of a frame of ``spp`` counter-RNG samples against a target, its
+gradient by autograd through ``tracer.py``, and Adam.
 
 The target is rendered here from the true scene and texels; each step
 renders the frame it is given with the current parameters (material
 albedos, sphere centers, every env texel), takes the mean squared error
 against the target, and updates the parameters by Adam (bias-corrected
-moments, ``eps`` added outside the square root). The image is rendered
-and differentiated in blocks of rows, so that the saved intermediates of
+moments, ``eps`` added outside the square root). A frame's colour is the
+mean of its samples, sample s keyed as ``sample0 = s``, each sample's
+colour its emitted radiance plus its own env tap times its throughput;
+autograd sums the samples' gradients. The image is rendered and
+differentiated in blocks of rows, so that the saved intermediates of
 one block are all autograd holds at a time; the loss is the sum of the
 blocks' squared errors over 3 * H * W.
 """
@@ -16,7 +19,12 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.reference.tracer import render_planes, sample_color, tables
+from benchmark.reference.tracer import (
+    f32_round,
+    render_planes,
+    sample_color,
+    tables,
+)
 
 BETA1, BETA2 = 0.9, 0.999
 
@@ -30,15 +38,30 @@ def _rows(opts: dict, rows) -> int:
     return opts["height"] if rows is None else rows
 
 
+def frame_rows(tabs, tex, tex_w, tex_h, opts, frame, row0, rows,
+               live=None):
+    """(3, rows, W) colour of image rows [row0, row0 + rows) of
+    ``frame``: the sum of its ``opts["spp"]`` samples' colours times
+    1 / spp (one sample's colour as it is). ``live`` receives each
+    sample's live paths per segment."""
+    one = dict(opts, spp=1)
+    acc = None
+    for s in range(opts["spp"]):
+        planes = render_planes(tabs, one, frame, sample0=s, row0=row0,
+                               rows=rows, live=live)
+        color, _ = sample_color(planes, tex, tex_w, tex_h, opts)
+        acc = color if acc is None else acc + color
+    return acc if opts["spp"] == 1 else acc * f32_round(1.0 / opts["spp"])
+
+
 def render_target(scene, tex, tex_w, tex_h, opts, frame, block_rows,
                   dtype=torch.float32):
-    """(3, H, W) colour of one sample of the true scene at ``frame``."""
+    """(3, H, W) colour of the true scene at ``frame``."""
     tabs = tables(scene, opts, dtype)
     tex = tex.to(dtype)
     with torch.no_grad():
         return torch.cat([
-            sample_color(render_planes(tabs, opts, frame, row0=r0, rows=n),
-                         tex, tex_w, tex_h, opts)[0]
+            frame_rows(tabs, tex, tex_w, tex_h, opts, frame, r0, n)
             for r0, n in _blocks(opts["height"], block_rows)], dim=1)
 
 
@@ -55,9 +78,8 @@ def loss_and_grads(scene, params, tex_w, tex_h, opts, frame, target,
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
         tabs = tables(scene, opts, dtype, albedo=leaves["albedo"],
                       centers=leaves["sphere_centers"])
-        planes = render_planes(tabs, opts, frame, row0=r0, rows=n, live=live)
-        color, _ = sample_color(planes, leaves["env_rgb"].t(), tex_w, tex_h,
-                                opts)
+        color = frame_rows(tabs, leaves["env_rgb"].t(), tex_w, tex_h, opts,
+                           frame, r0, n, live)
         err = ((color - target[:, r0:r0 + n]) ** 2).sum()
         part = torch.autograd.grad(err / (3 * n_px), list(leaves.values()),
                                    allow_unused=True)
@@ -70,13 +92,13 @@ def loss_and_grads(scene, params, tex_w, tex_h, opts, frame, target,
 
 def adam_steps(scene, tex, tex_w, tex_h, opts, params0, target_frame, frames,
                lr, eps, block_rows, dtype=torch.float32, live=None,
-               rows=None, grad_norms=None):
+               rows=None, first_grads=None):
     """Render the target at ``target_frame``, then one Adam step per frame
     of ``frames``. Returns (losses, params, first moments, second
     moments), the last three as dicts of the parameters' names. ``live``
-    receives the first step's live paths per segment (and block), and
-    ``grad_norms`` its gradient's norm per parameter; ``rows`` counts
-    only the first image rows in the loss."""
+    receives the first step's live paths per segment (and sample and
+    block), and ``first_grads`` its gradient per parameter; ``rows``
+    counts only the first image rows in the loss."""
     target = render_target(scene, tex, tex_w, tex_h, opts, target_frame,
                            block_rows, dtype)
     params = {k: v.detach().to(dtype).clone() for k, v in params0.items()}
@@ -88,9 +110,8 @@ def adam_steps(scene, tex, tex_w, tex_h, opts, params0, target_frame, frames,
                                      target, block_rows,
                                      live if t == 1 else None, rows)
         losses.append(loss)
-        if t == 1 and grad_norms is not None:
-            grad_norms.update({k: float(torch.linalg.vector_norm(g.double()))
-                               for k, g in grads.items()})
+        if t == 1 and first_grads is not None:
+            first_grads.update(grads)
         bc1, bc2 = 1.0 - BETA1 ** t, 1.0 - BETA2 ** t
         with torch.no_grad():
             for k, g in grads.items():

@@ -1,7 +1,10 @@
 """On the card (marker ``cuda``; each test skips without one): one short
-run of every cell prints a result line that keeps the contract, and the
+run of every cell prints a result line that keeps the contract, the
 lower-precision control fails the limits of a progressive cell and of
-the checkpoint saves at their own size. Run on the card with
+the checkpoint saves at their own size, and a training cell's
+``grad_gap`` holds the program's first gradient under its limit and
+fails it scaled by 2 or by 0.5 in the program's backward. Run on the
+card with
 
     python -m pytest -p no:cacheprovider benchmark/tests/test_bench_card.py
 """
@@ -14,12 +17,16 @@ from pathlib import Path
 import pytest
 import torch
 
+from benchmark.harness import check, port
 from benchmark.harness.inputs import make_inputs
 from benchmark.harness.spec import load_cell, load_module, load_spec
+from cpuperformanceraytracer_tpu_torch.diff import grad
+from planted import backward_scaled
 
 ROOT = Path(__file__).resolve().parents[2]
 SPEC = load_spec()
 CELLS = [w["name"] for w in SPEC["workloads"]]
+TRAIN = [c for c in CELLS if load_cell(c).traffic["kind"] == "train"]
 
 pytestmark = pytest.mark.cuda
 
@@ -77,3 +84,24 @@ def test_the_save_control_fails_at_the_cells_size(card):
     assert got.pop("sound") == 0.0
     limit = c.checks["limits"]["saves_off"]
     assert all(v > limit for v in got.values()), got
+
+
+@pytest.mark.parametrize("cell", TRAIN)
+@pytest.mark.parametrize("factor", [1.0, 2.0, 0.5])
+def test_the_gradient_check_at_the_cells_size(card, cell, factor,
+                                              monkeypatch):
+    """The program's first gradient (``port.gradients``: kernels A to D)
+    with its frame's backward scaled by ``factor`` (1: sound) against the
+    reference's first step."""
+    c = load_cell(cell)
+    inputs = make_inputs(c, 2 ** 31 + 13, card)
+    problem = port.train_problem(inputs, card)
+    monkeypatch.setattr(grad, "render_frame_diff", backward_scaled(
+        grad.render_frame_diff, factor))
+    loss, grads = port.gradients(problem, inputs.params0, inputs.frame0)
+    ref = check.reference_train(inputs, c.traffic, steps=1)
+    got = check.compare_train(inputs, {"losses": [loss], "grads": grads},
+                              ref)
+    limit = c.checks["limits"]["grad_gap"]
+    assert got["loss_gap"] <= c.checks["limits"]["loss_gap"], got
+    assert (got["grad_gap"] <= limit) == (factor == 1.0), got

@@ -11,11 +11,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from benchmark.harness import window
-from benchmark.harness.inputs import make_inputs
+from benchmark.harness.inputs import gradient_sky, make_inputs
 from benchmark.harness.spec import load_cell, load_module, load_spec
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -70,7 +71,7 @@ def test_cell_resolves_to_its_files(cell):
     c = load_cell(cell)
     assert c.config["name"] == next(w["config"] for w in SPEC["workloads"]
                                     if w["name"] == cell)
-    assert c.traffic["kind"] in ("progressive", "train", "checkpointed")
+    assert load_module("kinds", c.traffic["kind"]).COMPARES
     assert c.checks["limits"]
     reported = {m["name"] for m in c.end_to_end}
     assert "setup_s" in reported and len(reported) >= 2
@@ -143,10 +144,8 @@ def test_the_checkpointed_mix_saves_at_each_chunks_end():
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_checks_limit_every_number_the_kind_compares(cell):
     c = load_cell(cell)
-    numbers = {"progressive": {"pixels_off"},
-               "checkpointed": {"pixels_off", "saves_off"},
-               "train": {"loss_gap", "change_gap"}}[c.traffic["kind"]]
-    assert set(c.checks["limits"]) == numbers
+    numbers = load_module("kinds", c.traffic["kind"]).COMPARES
+    assert set(c.checks["limits"]) == set(numbers)
     if c.traffic["kind"] == "checkpointed":
         # a save is a copy: compared exactly, in the format's version 1
         assert c.checks["limits"]["saves_off"] == 0
@@ -219,7 +218,9 @@ def test_inputs_follow_the_seed(cell):
     a = make_inputs(c, 2 ** 31 + 5, torch.device("cpu"))
     b = make_inputs(c, 2 ** 31 + 5, torch.device("cpu"))
     d = make_inputs(c, 7, torch.device("cpu"))
-    assert torch.equal(a.tex, b.tex) and not torch.equal(a.tex, d.tex)
+    # a mix that fixes the sun renders the same env map for every seed
+    fixed = "env_sun" in c.traffic
+    assert torch.equal(a.tex, b.tex) and torch.equal(a.tex, d.tex) == fixed
     assert a.tex.shape == d.tex.shape and a.opts == d.opts
     if c.traffic["kind"] == "progressive":
         assert a.check_fractions == b.check_fractions
@@ -246,6 +247,24 @@ def _run(cwd, env=None):
 
 def _printed_result(p) -> bool:
     return any(line.startswith("{") for line in p.stdout.splitlines())
+
+
+def test_a_fixed_sun_is_where_the_mix_puts_it():
+    """``env_sun`` = (u, v) puts the sun's brightest texel there for every
+    seed, after the draw that would have placed it, so what is drawn next
+    does not move; the checkpointed mix's sun is where the program's
+    ``gradient_sky`` puts it with its seed 0."""
+    gen, same = (torch.Generator().manual_seed(3) for _ in range(2))
+    tex = gradient_sky(64, 32, gen, "cpu", (0.25, 0.75))
+    row, col = divmod(int(tex[0].argmax()), 64)
+    assert (row, col) == (round(0.75 * 31), round(0.25 * 63))
+    torch.rand(2, generator=same)
+    assert torch.equal(torch.rand(3, generator=gen),
+                       torch.rand(3, generator=same))
+    rs = np.random.RandomState(0)
+    sun = json.loads((ROOT / "benchmark/traffic/checkpointed.json")
+                     .read_text())["env_sun"]
+    assert sun == [rs.uniform(0.2, 0.8), rs.uniform(0.5, 0.9)]
 
 
 def test_a_run_without_a_card_fails():

@@ -48,6 +48,8 @@ def test_bound_takes_the_larger_time():
                                     "kernel_f": 1}),
     ("train", "counter", 1, {"kernel_a": 16, "kernel_b": 16, "kernel_c": 16,
                              "kernel_d": 16}),
+    ("train", "counter", 2, {"kernel_a": 32, "kernel_b": 32, "kernel_c": 32,
+                             "kernel_d": 32}),
 ])
 def test_launches_per_call(kind, rng, spp, want):
     opts = {"rng": rng, "spp": spp}
