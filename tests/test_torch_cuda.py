@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from torch_port_helpers import (  # noqa: F401  (fixture)
+    NOTHING_TRACED,
     cuda_device,
     kernel_d_order,
     port_beer_scene,
@@ -1120,7 +1121,7 @@ def test_tracing_counts_the_lanes_of_kernels_a_and_c(cuda_device, tracing):
     r.step()
     params, target, scene, cam, tex, tcfg = _glass_step(cuda_device)
     loss_and_grad(params, target, scene, cam, tex, tcfg, 1)
-    assert tracing.read() == {"lanes": {}, "phases_ms": {}}
+    assert tracing.read() == NOTHING_TRACED
     tracing.enable()
     r.step()
     assert _lanes_ok(tracing.read()["lanes"], {"kernel_a"})
@@ -1163,7 +1164,7 @@ def test_a_graph_captured_with_tracing_off_records_nothing(cuda_device,
     tracing.reset()
     for step0 in (2, 4):
         step_k(p, step0)
-    assert tracing.read() == {"lanes": {}, "phases_ms": {}}
+    assert tracing.read() == NOTHING_TRACED
 
 
 def test_reset_zeroes_the_counters_and_keeps_the_graph(cuda_device, tracing):
@@ -1171,7 +1172,7 @@ def test_reset_zeroes_the_counters_and_keeps_the_graph(cuda_device, tracing):
     step_k, p = _train_graph(cuda_device)
     step_k(p, 0)
     tracing.reset()
-    assert tracing.read() == {"lanes": {}, "phases_ms": {}}
+    assert tracing.read() == NOTHING_TRACED
     losses = step_k(p, 2)
     got = tracing.read()
     assert torch.isfinite(losses).all()

@@ -13,7 +13,7 @@ import json
 import pytest
 import torch
 
-import torch_port_helpers  # noqa: F401  (one intra-op thread)
+from torch_port_helpers import NOTHING_TRACED  # one intra-op thread too
 from cpuperformanceraytracer_tpu_torch.config import RenderConfig
 from cpuperformanceraytracer_tpu_torch.diff.grad import render_for_params
 from cpuperformanceraytracer_tpu_torch.diff.inverse import (
@@ -88,7 +88,7 @@ def test_off_by_default_costs_a_flag_check():
     assert profiling.span("driver.frame") is profiling.span("dispatch")
     assert profiling.phases("cpu").phase("step.loss") is profiling.span("x")
     assert profiling.lane_counter("kernel_a", "cpu") is None
-    assert profiling.read() == {"lanes": {}, "phases_ms": {}}
+    assert profiling.read() == NOTHING_TRACED
 
 
 def test_off_the_hot_path_makes_no_annotation():
@@ -99,7 +99,7 @@ def test_off_the_hot_path_makes_no_annotation():
     assert not names & set(SPANS + PHASES)
     assert not [n for n in names if n.startswith(("driver.", "frame.",
                                                   "step.", "dispatch"))]
-    assert profiling.read() == {"lanes": {}, "phases_ms": {}}
+    assert profiling.read() == NOTHING_TRACED
 
 
 @pytest.mark.parametrize("route", [dict(rng="wang"),
@@ -130,7 +130,7 @@ def test_on_a_step_is_four_phases_in_order():
     # back to back: each phase starts after the one before it ended
     assert all(a[2] <= b[1] for a, b in zip(events, events[1:]))
     # no device, so no event and no counter
-    assert profiling.read() == {"lanes": {}, "phases_ms": {}}
+    assert profiling.read() == NOTHING_TRACED
 
 
 def test_trace_writes_the_trace_and_the_counters(tmp_path):
@@ -144,7 +144,7 @@ def test_trace_writes_the_trace_and_the_counters(tmp_path):
     assert {"driver.frame", "frame.render", "frame.resolve"} <= names
     counters = json.loads((tmp_path / "t" / profiling.COUNTERS_FILE)
                           .read_text())
-    assert counters == {"lanes": {}, "phases_ms": {}}
+    assert counters == NOTHING_TRACED
 
 
 def test_enable_disable_and_a_trace_inside_tracing(tmp_path):

@@ -16,6 +16,11 @@ import torch
 # six xdist workers share the machine: one intra-op thread each
 torch.set_num_threads(1)
 
+# what ``utils/profiling.read()`` gives with nothing recorded
+NOTHING_TRACED = {"lanes": {}, "phases_ms": {},
+                  "checkpoint": {"saves": 0, "members": 0, "chunks": 0,
+                                 "workers": 0}}
+
 
 @pytest.fixture
 def cuda_device():
