@@ -1,6 +1,13 @@
-"""Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
+"""The card's correctness gate for the PyTorch + CUDA port, on one NVIDIA GPU.
 
     python3 chip_smoke.py
+
+It checks that every kernel builds and agrees with its plain version on
+the card, that the main paths launch what they should, and that the
+drivers run; it times only the probe kernels (phase 14), which no cell
+of the benchmark measures. The main path's speed is the benchmark's:
+``python3 benchmark/run.py --workload <cell> --seed <n> --seconds 10
+--trace <0|1>``, on each tree to compare.
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -13,24 +20,19 @@ Phases, one line each; any failure raises and the exit code is not 0:
    within 1e-2 relative, and on every one of the 12 planes (the miss
    direction and env jitter where the ``missed`` flags agree, and the
    flags themselves) under 0.1% of pixels off by > 1e-3; kernel A's lane
-   utilisation at 720p (lanes that run a segment over the lane slots of
-   all warp iterations): counted by the persistent kernel, and for one
-   thread per pixel from the plain version's per-pixel live masks (a
-   warp is 32 neighbouring pixels of a row and runs until its longest
-   path ends); its ptxas registers and spills, and its resident blocks;
+   utilisation at 720p as the persistent kernel counts it (``lane_stats``),
+   its ptxas registers and spills, and its resident blocks;
 4. kernel B (env resolve + accumulate) vs its plain version on the same
    planes: texel indices equal on >= 99.9% of pixels, the accumulator
    allclose (rtol 1e-5) where they are equal; then the chain kernel A ->
    kernel B vs plain A -> plain B, under 0.1% of pixels off by > 1e-3;
 5. main path: OfflineRenderer(backend="cuda") at the bench workload
    (1280x720, glass_spheres, 8 bounces, 1 spp, equirect stochastic env,
-   wang RNG), 2 warmup + 64 timed frames; both launch counters must equal
-   66; the image is finite with a nonzero mean, and the accumulator
-   agrees with the plain-torch path's on the card pixel by pixel (means
-   within 1e-2 relative, under 1% of pixels off by > 1e-3: 64 frames, each
-   of which may flip a path). The device time per frame is also taken
-   with the stream kept full (CUDA events), and the idle share of the
-   timed loop is 1 - that / ms per frame;
+   wang RNG), 2 warmup + 64 frames; both launch counters must equal 66;
+   the image is finite with a nonzero mean, and the accumulator agrees
+   with the plain-torch path's on the card pixel by pixel (means within
+   1e-2 relative, under 1% of pixels off by > 1e-3: 64 frames, each of
+   which may flip a path);
 6. kernel C (the adjoint megakernel) vs its plain version (autograd of
    the plain kernel A) on seeded cotangents: the Beer scene (one glass
    sphere every path refracts through, a geometry gradient) and
@@ -39,59 +41,43 @@ Phases, one line each; any failure raises and the exit code is not 0:
    the kernel sums in another order); glass_spheres + gradient_sky(512,
    256) at 1280x720, 8 bounces, relative L2 error under 2e-2 per table
    (a lottery flip on a few pixels moves a sum over all pixels); two
-   launches bit-equal (fixed-order sums); its lane utilisation (counted
-   in the kernel, and for one thread per pixel from the plain version's
-   masks), the clock64 split of an instrumented launch (the cycles lane 0
-   of every warp spends refilling, in segment(), finishing steps, summing
-   into the warps' rows and writing the partials), its time back to back
-   and with the stream held full, its ptxas registers and spills;
+   launches bit-equal (fixed-order sums); its lane utilisation as the
+   kernel counts it, its ptxas registers and spills;
 7. kernel D (env cotangents + texel scatter) vs its plain version at
    1280x720 pixels and 512x256 texels, on kernel B's indices of phase 4:
    cot_mt exactly equal, each texel's sum of k values within
    (k - 1) * 2^-24 * sum|v| (at least 8 * 2^-24 * sum|v|) of a float64
    index_add_; two calls bit-equal (fixed-order sums); the busiest texel
-   with and without the zero addends (which the kernel drops), and D, the
-   deterministic library call (index_put_ with accumulate, which sorts
-   under torch.use_deterministic_algorithms) and index_add_ (atomics)
-   with the stream held full;
+   with and without the zero addends (which the kernel drops);
 8. the training path: fwd_bwd_benchmark(backend="cuda") at the bench
    workload (counter RNG, params albedo + 0.05, sphere centers + 0.1 and
    every env texel), JAX's protocol (6 warmup calls, one untimed span,
-   64 timed steps in 2 spans), once at K = 16 steps a dispatch (one CUDA
-   graph of 16 steps) and once at K = 1 (the per-step loop). Each run is
-   traced by torch.profiler, which counts the launches of kernels A, B,
-   C and D on the device: one a step of every warmup, untimed and timed
-   call, 16 more at K = 16 for the capture's warm-up run, and A and B
-   once more for the target; the wrappers' counters, which count no
-   capture and cannot see a replay, count the launches outside the
-   graph (a trace the profiler left short, every count at most the
-   expected one, is taken again, up to 3 times, and the last must match
-   exactly). A second, untraced run of the same bench gives ms/step; for
-   each K the device time per step with the stream kept full, the idle
-   share and the host's enqueue time per dispatch. torch.profiler over
-   one replay of a K = 16 graph counts 16 launches each of A-D (a short
-   trace taken again as above) and
-   splits its device time by kernel; the graphed grad_sum and losses
-   bit-equal to 16 ungraphed steps summed in order, and 16 graphed Adam
-   steps (capturable) leave
-   the parameters and losses bit-equal to 16 ungraphed ones, Adam's
-   kernel counted from 0 just before each side (16 launches in the
-   capture's warm-up run, 16 in the graph's replay, 16 in the ungraphed
-   loop); gradients
-   finite and within 2e-2 relative L2 of the plain path's on the card;
-   two steps on one frame bit-equal (loss and gradients); the same step
-   with a cubemap env (six gradient_sky(256, 256) faces) within 2e-2
-   relative L2 of the plain path's; then 8 Adam steps of
+   64 steps in 2 spans), once at K = 16 steps a dispatch (one CUDA graph
+   of 16 steps) and once at K = 1 (the per-step loop), gradients finite.
+   Each run is traced by torch.profiler, which counts the launches of
+   kernels A, B, C and D on the device: one a step of every warmup,
+   untimed and timed call, 16 more at K = 16 for the capture's warm-up
+   run, and A and B once more for the target; the wrappers' counters,
+   which count no capture and cannot see a replay, count the launches
+   outside the graph (a trace the profiler left short, every count at
+   most the expected one, is taken again, up to 3 times, and the last
+   must match exactly). torch.profiler over one replay of a K = 16 graph
+   counts 16 launches each of A-D (a short trace taken again as above);
+   the graphed grad_sum and losses bit-equal to 16 ungraphed steps
+   summed in order, and 16 graphed Adam steps (capturable) leave the
+   parameters and losses bit-equal to 16 ungraphed ones, Adam's kernel
+   counted from 0 just before each side (16 launches in the capture's
+   warm-up run, 16 in the graph's replay, 16 in the ungraphed loop);
+   gradients finite and within 2e-2 relative L2 of the plain path's on
+   the card; two steps on one frame bit-equal (loss and gradients); the
+   same step with a cubemap env (six gradient_sky(256, 256) faces)
+   within 2e-2 relative L2 of the plain path's; then 8 Adam steps of
    adam_inverse_render on the albedo (one graph of 8), whose loss must
    fall, with 8 launches of Adam's kernel in the capture's warm-up run.
-   Adam's kernel (kernels/adam.py) at the training leaves of the
-   720p and 1080p cells (albedo 11x3, sphere centers 7x3, 131072 or
-   2097152 texels x 3): 16 steps bit-equal to torch.optim.Adam(
-   capturable=True) in params and state, 16 launches counted from 0
-   just before them; a step's device time in a CUDA
-   graph of 16 steps, for the kernel, its plain version and, as
-   yardsticks the port never calls, torch's foreach capturable step and
-   fused=True, beside its bound (28 bytes an element);
+   Adam's kernel (kernels/adam.py) at the training leaves of the 720p
+   and 1080p cells (albedo 11x3, sphere centers 7x3, 131072 or 2097152
+   texels x 3): 16 steps bit-equal to torch.optim.Adam(capturable=True)
+   in params and state, 16 launches counted from 0 just before them;
 9. kernel E (env lookup + texel fetch) vs its plain version on phase 3's
    720p planes, for all six env_mode x env_sampling pairs (equirect
    gradient_sky(512, 256); cubemap six gradient_sky(256, 256) faces):
@@ -105,16 +91,14 @@ Phases, one line each; any failure raises and the exit code is not 0:
    and never off by more than 1;
 12. the textured path: OfflineRenderer(backend="cuda") at textured_1080
    (1920x1080, glass_spheres, 16 spp, 8 bounces, counter RNG, equirect
-   stochastic) with a gradient_sky(2048, 1024) env, 2 warmup + 16 timed
+   stochastic) with a gradient_sky(2048, 1024) env, 2 warmup + 16
    frames; kernels A and E launch 16 times a frame, F once; kernel E vs
    its plain version on one frame's 16 samples at these shapes (1080p
    planes, the 2k env), by phase 9's rules; after 2 frames the
    accumulator agrees with the plain path's on the card (means within
-   1e-2, under 1% of pixels off by > 1e-3); the device
-   time per frame with the stream kept full and the idle share; one
-   720p frame each of bilinear equirect and cubemap nearest through the
-   same route, checked the same way; a PNG written through kernel G
-   (one launch); G timed at 1080p back to back and held full;
+   1e-2, under 1% of pixels off by > 1e-3); one 720p frame each of
+   bilinear equirect and cubemap nearest through the same route, checked
+   the same way; a PNG written through kernel G (one launch);
 13. checkpoint/resume on the card: 8 textured_1080 frames saved every 4,
    a new renderer resumed for 4 more, bit-equal to 12 frames in one run;
 14. the probes (kernels K6-K8, built into their own library in phase 2):
@@ -135,40 +119,33 @@ Phases, one line each; any failure raises and the exit code is not 0:
    flight) and K8b (0, 1, 3, 5, 2048 and 921600 queries and views one
    int32 off; two launches bit-equal) bit-equal; K8a's in-flight bound n
    t1 / depth from its depth-1 time in the same run; the ptxas registers
-   and spills of K6 and K7; last, kernels B,
-   D, E and G and ``index_add_`` at 720p timed both ways, back to back
-   (as phases 4-12 time them) and with the stream held full (as the
-   probes time theirs): where back to back is longer, the host's
-   enqueue set its pace;
+   and spills of K6 and K7;
 15. the oracle integrator (backend "oracle", plain torch on the card):
-   OfflineRenderer at the forward workload, 1 warmup + 4 timed frames,
-   against the kernel route's 4 frames (means within 1e-2, under 1% of
-   pixels off by > 1e-3: the oracle takes the sphere normal as
+   OfflineRenderer at the forward workload, 1 warmup + 4 frames, against
+   the kernel route's 4 frames (means within 1e-2, under 1% of pixels
+   off by > 1e-3: the oracle takes the sphere normal as
    safe_normalize(hit_rel), kernel A as hit_rel * (1/r)), with its peak
    memory; the cornell box 256x64, 2 bounces, against kernel A at rtol
    1e-4, atol 1e-5; path-replay gradients (diff/path_replay.py) against
    plain autograd through the oracle at 320x180, 8 bounces, bilinear env
    (which the kernel routes refuse), rtol 1e-4 and atol 1e-7, with the
-   peak memory and time of each;
+   peak memory of each;
 16. the parallel layer, the row windows, the native codec and the
    profiler. Right after phase 5: ``make -C native`` and the native RGBE
    decode and BMP encode equal to the numpy path; one forward frame under
    ``utils/profiling.trace``, whose Chrome trace must name kernel A. Last:
    kernels A and C on the lower 360 rows of the 720p frame (A bit-equal to
-   those rows of a whole launch, C bit-equal on two launches), each held
-   full on the window and on the whole frame; a world of 1 (no process
-   group) bit-equal to the unsharded kernel route; a gloo world of 2 ranks
-   on the one card (``parallel.mesh.spawn_world``): px = 2 forward frames
-   (wang and counter) bit-equal to the unsharded kernel route, px = 1 x
-   spp = 2 at spp 2 within 1e-5 absolute, a sharded training step (px =
-   2, counter) with its loss within 1e-5 relative and its gradients under
-   1e-5 relative L2 of the unsharded K = 1 step, two sharded steps
-   bit-equal, the f32 elements its collectives move equal to
-   ``parallel/budget``'s model, kernels A-D launched by the ranks (the
-   counts set to 0 just before), the sharded step's ms and its gradient
-   all-reduce's; then ``parallel.scaling.measure_scaling`` over worlds of
-   1 and 2 ranks at the forward workload (two ranks on one card share it:
-   their efficiency measures contention and gloo's host staging);
+   those rows of a whole launch, C bit-equal on two launches); a world of
+   1 (no process group) bit-equal to the unsharded kernel route; a gloo
+   world of 2 ranks on the one card (``parallel.mesh.spawn_world``): px =
+   2 forward frames (wang and counter) bit-equal to the unsharded kernel
+   route, px = 1 x spp = 2 at spp 2 within 1e-5 absolute, a sharded
+   training step (px = 2, counter) with its loss within 1e-5 relative and
+   its gradients under 1e-5 relative L2 of the unsharded K = 1 step, two
+   sharded steps bit-equal, the f32 elements its collectives move equal
+   to ``parallel/budget``'s model, kernels A-D launched by the ranks (the
+   counts set to 0 just before); then ``parallel.scaling.measure_scaling``
+   runs over worlds of 1 and 2 ranks at the forward workload;
 17. the drivers of BASELINE configs 5 and 4 and of the headline metric,
    run as a user runs them, each with the launch counts of kernels A, B,
    C, D, G and Adam's set to 0 just before it and read just after (C and
@@ -178,33 +155,32 @@ Phases, one line each; any failure raises and the exit code is not 0:
    run_offline`` at 3840x2160 x 1024 frames (phase 1 to frame 512 with a
    checkpoint every 128, a fresh renderer resumed for the rest), its
    accumulator bit-equal to one uninterrupted 1024-frame run without
-   checkpoints, finite, with a nonzero mean; its ms/frame, Mrays/s, wall
-   seconds of each phase and checkpoint save seconds, and the 4K frame's
-   device time with the stream kept full; kernel G on its accumulator by
-   phase 11's rules, and one 4K frame of kernels A and B against their
+   checkpoints, finite, with a nonzero mean; kernel G on its accumulator
+   by phase 11's rules, and one 4K frame of kernels A and B against their
    plain versions by phases 3 and 4's; ``scripts.inverse_env_demo.
    inverse_env`` at its own size (256x144, spp 2, 3 bounces, every one of
    the 131072 texels trained, 200 steps at K = 16), whose loss must fall
-   and whose parameters must be finite, with ms/step with the capture
-   included and at steady state and each material's albedo error; its
-   first step's gradients (A-D at spp 2, T > P) within 2e-2 relative L2
-   of the plain path's on the card, and the same 200 steps on the plain
-   path on the card (``backend="torch"``: torch's own capturable Adam,
-   no launch of Adam's kernel), whose losses the kernels' must match within 1e-4
-   relative at every step and whose albedos within 1e-4; ``bench.
-   headline``, whose JSON line is printed (gradients finite); and the
-   training step at 720p, K = 16, with a ``gradient_sky(2048, 1024)`` env
-   (2097152 texels against 921600 pixels: config 3's T ~ P regime), timed
-   as the bench times it, and kernel D at its shapes (the 720p planes'
-   indices into the 2048x1024 env) by phase 7's rules.
+   and whose parameters must be finite, with each material's albedo
+   error; its first step's gradients (A-D at spp 2, T > P) within 2e-2
+   relative L2 of the plain path's on the card, and the same 200 steps on
+   the plain path on the card (``backend="torch"``: torch's own
+   capturable Adam, no launch of Adam's kernel), whose losses the
+   kernels' must match within 1e-4 relative at every step and whose
+   albedos within 1e-4; ``bench.headline``, whose gradients must be
+   finite; and the training step at 720p, K = 16, with a
+   ``gradient_sky(2048, 1024)`` env (2097152 texels against 921600
+   pixels: config 3's T ~ P regime), gradients finite, and kernel D at
+   its shapes (the 720p planes' indices into the 2048x1024 env) by phase
+   7's rules.
 
-Then one JSON line with each kernel's numbers (times, launches on the
-main paths, and the bound: the larger of its bytes over 3.35 TB/s and
-its operations over the peak of their type (FP32 67 TFLOP/s, TF32 on
-the tensor cores 495 TFLOP/s), counted from this run's inputs; a probe
-kernel's launches are those of the probe entry points, on no render
-path), the card's nvidia-smi line, and last ``{"ok": true, "device":
-{...}}``. Without a GPU it exits non-zero before printing any result.
+Then one JSON line with each kernel's numbers (its error against the
+plain version, launches on the main paths; for a probe kernel its times
+and the bound: the larger of its bytes over 3.35 TB/s and its operations
+over the peak of their type (FP32 67 TFLOP/s, TF32 on the tensor cores
+495 TFLOP/s), counted from this run's inputs, and launches, those of the
+probe entry points, on no render path), the card's nvidia-smi line, and
+last ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero
+before printing any result.
 """
 
 from __future__ import annotations
@@ -219,7 +195,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 WARMUP, FRAMES = 2, 64
-STEPS = 64                      # timed training steps (2 spans)
+STEPS = 64                      # the training bench's steps (2 spans)
 STEPS_PER_DISPATCH = 16         # the training bench's K (JAX's default)
 WARMUP_CALLS = 6                # fwd_bwd_benchmark's warmup calls
 
@@ -227,27 +203,12 @@ WARMUP_CALLS = 6                # fwd_bwd_benchmark's warmup calls
 # TF32 tensor-core FLOP/s
 PEAK_BYTES, PEAK_FLOPS, PEAK_TF32 = 3.35e12, 67e12, 495e12
 
-# FP32 operations the kernels execute unconditionally, counted from
-# csrc/bounce.cuh and csrc/backward.cu (add, sub, mul, div, sqrt, min,
-# max, transcendental: 1 each; integer RNG work, comparisons and
-# selects not counted, so the bound stays a lower bound)
-FLOPS_QUAD, FLOPS_SPHERE = 44, 19      # one ray-object test
-FLOPS_SHADE = 200                      # the rest of a segment
-FLOPS_CAMERA = 29                      # camera ray + output sum, per pixel
-FLOPS_ADJOINT = 110                    # a segment's hand-written adjoint
-FLOPS_CAMERA_ADJ = 27
-
 
 def bound(nbytes: float, flops: float, tf32_flops: float = 0.0) -> tuple:
     """(bound_ms, bound_by): the least time the card needs for the work."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = max(flops / PEAK_FLOPS, tf32_flops / PEAK_TF32) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def segment_flops(tables) -> int:
-    return (FLOPS_QUAD * tables[0].shape[0] + FLOPS_SPHERE * tables[1].shape[0]
-            + FLOPS_SHADE)
 
 
 def phase(name: str, msg: str) -> None:
@@ -259,40 +220,6 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, n: int, warm: int = 2) -> float:
-    """Mean device milliseconds per call over ``n`` calls (CUDA events)."""
-    for _ in range(warm):
-        fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def device_ms_by_kernel(fn, calls: int = 5) -> dict:
-    """Device milliseconds per call of ``fn`` by kernel name
-    (torch.profiler's CUDA activity)."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            out[e.key] = us / 1e3 / calls
-    return out
 
 
 def robust(a: torch.Tensor, b: torch.Tensor, what: str, frac: float) -> float:
@@ -307,36 +234,6 @@ def robust(a: torch.Tensor, b: torch.Tensor, what: str, frac: float) -> float:
     return off
 
 
-def device_frame_ms(step, n: int, sleep_cycles: int = 200_000_000,
-                    windows: int = 1) -> float:
-    """Device milliseconds per call of ``step`` with the stream kept full:
-    in each of ``windows`` windows a sleep kernel (~0.1 s at the H100's
-    clock by default) holds the stream while the host enqueues ``n``
-    calls, so no call waits for the host (CUDA events). A window must
-    hold fewer launches than the stream's launch queue, or the host
-    blocks until the sleep ends. A window in which the stream drained
-    (the host was slower than the sleep) is measured again with a sleep
-    four times longer, up to twice."""
-    total = 0.0
-    for _ in range(windows):
-        for sleep in (sleep_cycles, 4 * sleep_cycles, 16 * sleep_cycles):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            torch.cuda.synchronize()
-            torch.cuda._sleep(sleep)
-            start.record()
-            for _ in range(n):
-                step()
-            end.record()
-            drained = start.query()
-            torch.cuda.synchronize()
-            if not drained:
-                break
-        else:
-            raise AssertionError("the stream drained while work was enqueued")
-        total += start.elapsed_time(end)
-    return total / (n * windows)
-
-
 def ptxas_of(log: str, kernel: str) -> str:
     """ptxas's registers and spills for the entry functions whose mangled
     name holds ``kernel``, from an nvcc -Xptxas -v log."""
@@ -348,15 +245,6 @@ def ptxas_of(log: str, kernel: str) -> str:
             found.append(ln.split(":", 1)[-1].strip() if "registers" in ln
                          else ln.strip())
     return " | ".join(found) or "no ptxas log (the library was already built)"
-
-
-def lane_utilisation(masks, width: int) -> float:
-    """Live segments over 32 x each warp's longest path, for one thread
-    per pixel with a warp on 32 neighbouring pixels of a row."""
-    live = torch.stack(masks).sum(0)                       # (H, W)
-    pad = (-width) % 32
-    warps = torch.nn.functional.pad(live, (0, pad)).reshape(live.shape[0], -1, 32)
-    return live.sum().item() / (32 * warps.amax(-1).sum().item())
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -421,8 +309,8 @@ def hold_env_backward(g, idx, mt, tex, what: str) -> dict:
     7's rule): cot_mt exactly equal, two calls bit-equal, each texel's sum
     of k values within (k - 1) * 2^-24 * sum|v| (at least 8 * 2^-24 *
     sum|v|) of a float64 index_add_. Returns the max abs error, the worst
-    error over its bound, the texel sums over 4 * 2^-23 * sum|v| here and
-    with index_add_, and the flat indices, values and counts."""
+    error over its bound, the texel sums over 4 * 2^-23 * sum|v|, and the
+    flat indices, values and counts."""
     from cpuperformanceraytracer_tpu_torch.kernels.env_backward import (
         env_backward,
         env_backward_reference,
@@ -441,14 +329,13 @@ def hold_env_backward(g, idx, mt, tex, what: str) -> dict:
     n_tex = tex.width * tex.height
     flat = idx.reshape(-1)
     vals = (g * mt).reshape(3, -1).t().contiguous()
-    library = torch.zeros((n_tex, 3), device=dev).index_add_(0, flat, vals)
     count = torch.bincount(flat, minlength=n_tex).double()
     # a sum of k f32 terms in any order is within (k - 1) * 2^-24 * sum|v|
     # of the exact sum (at least the fixed 4 * 2^-23 * sum|v| is allowed),
     # plus 2^-126 per add: f32 atomics flush subnormals to zero
     allow = torch.clamp(count - 1.0, min=8.0) * 2.0 ** -24
     ftz = 2.0 * count * 2.0 ** -126
-    max_err, worst, over_fixed, lib_over = 0.0, 0.0, 0, 0
+    max_err, worst, over_fixed = 0.0, 0.0, 0
     for c in range(3):
         v = vals[:, c].double()
         exact = torch.zeros(n_tex, dtype=torch.float64, device=dev)
@@ -461,11 +348,9 @@ def hold_env_backward(g, idx, mt, tex, what: str) -> dict:
         max_err = max(max_err, err.max().item())
         hit = mag > 0
         worst = max(worst, (err[hit] / (allow * mag + ftz)[hit]).max().item())
-        fixed = 4 * 2.0 ** -23 * mag
-        over_fixed += int((err > fixed).sum())
-        lib_over += int(((library[:, c].double() - exact).abs() > fixed).sum())
+        over_fixed += int((err > 4 * 2.0 ** -23 * mag).sum())
     return dict(max_err=max_err, worst=worst, over_fixed=over_fixed,
-                library_over_fixed=lib_over, flat=flat, vals=vals, count=count)
+                flat=flat, vals=vals, count=count)
 
 
 def hold_tonemap(acc, what: str) -> tuple:
@@ -513,9 +398,6 @@ def beer_scene(dev):
 TABLES = ("quad", "sphere", "material", "camera")
 
 
-C_CLOCKS = ("refill", "segment", "finish", "sums", "rows_out")
-
-
 def phase_kernel_c(dev, glass_tables, glass_cfg, build_log) -> dict:
     """Phase 6: kernel C vs its plain version; its numbers for the JSON."""
     from cpuperformanceraytracer_tpu_torch.config import RenderConfig
@@ -523,12 +405,8 @@ def phase_kernel_c(dev, glass_tables, glass_cfg, build_log) -> dict:
         bwd_tables,
         bwd_tables_reference,
     )
-    from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
-        pack_tables,
-        render_planes_reference,
-    )
+    from cpuperformanceraytracer_tpu_torch.kernels.megakernel import pack_tables
     from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
-    from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
 
     gen = torch.Generator(device=dev).manual_seed(0)
     strict_err = 0.0
@@ -569,158 +447,50 @@ def phase_kernel_c(dev, glass_tables, glass_cfg, build_log) -> dict:
     if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                for a, b in zip(got, again)):
         raise AssertionError("kernel C: two launches differ")
-    live, masks = [], []
-    render_planes_reference(glass_tables, cfg, 1, 0, live_segments=live,
-                            live_masks=masks)
-    util_pixel = lane_utilisation(masks, cfg.width)
-    del masks
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    clocks = torch.zeros(len(C_CLOCKS) + 1, dtype=torch.int64, device=dev)
     bwd_tables(glass_tables, cfg, 1, 0, cot6, lane_stats=stats)
-    bwd_tables(glass_tables, cfg, 1, 0, cot6, clocks=clocks)
-    torch.cuda.synchronize()
     util = stats[0].item() / stats[1].item()
-    split = {k: v / clocks[-1].item() for k, v in zip(C_CLOCKS, clocks.tolist())}
-    ms = cuda_ms(lambda: bwd_tables(glass_tables, cfg, 1, 0, cot6), 10)
-    held_ms = device_ms(lambda: bwd_tables(glass_tables, cfg, 1, 0, cot6), 20,
-                        dev)
-    plain_ms = cuda_ms(
-        lambda: bwd_tables_reference(glass_tables, cfg, 1, 0, cot6), 2, 1)
-    n_px = cfg.width * cfg.height
-    n_cells = sum(t.numel() for t in glass_tables)
-    n_blocks = bwd_blocks(glass_tables, cfg)
-    # the replay runs every live segment, the reverse sweep all but each
-    # pixel's last again (its adjoint reuses the replay's intermediates)
-    flops = ((2 * sum(live) - n_px) * segment_flops(glass_tables)
-             + sum(live) * FLOPS_ADJOINT
-             + n_px * (FLOPS_CAMERA + FLOPS_CAMERA_ADJ))
-    bnd = bound(6 * 4 * n_px + 4 * n_blocks * n_cells, flops)
     regs = ptxas_of(build_log, "bwd_tables_kernel")
     phase("kernel C", f"Beer + cornell 256x64 allclose (max abs err "
           f"{strict_err:.3g}); glass 1280x720 8 bounces relative L2 "
           + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
-          + f"; two launches bit-equal; {ms:.4f} ms back to back, "
-          f"{held_ms:.4f} held full vs plain {plain_ms:.2f} ms; bound "
-          f"{bnd[0]:.4f} ms ({bnd[1]}, {sum(live)} live segments); lane "
-          f"utilisation {util:.4f} (one thread per pixel: {util_pixel:.4f}); "
-          f"clock64 split " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-          + f"; {n_blocks} blocks; ptxas: {regs}")
-    return dict(max_abs_err=strict_err, ms=held_ms, back_to_back_ms=ms,
-                plain_ms=plain_ms, bound=bnd, library_ms=None,
-                rel_l2_1280x720=rels, live_segments=sum(live),
-                bit_equal_twice=True, lane_utilisation=util,
-                lane_utilisation_one_thread_per_pixel=util_pixel,
-                clock64_split=split, blocks=n_blocks, ptxas=regs)
-
-
-def bwd_blocks(tables, cfg) -> int:
-    """Rows of kernel C's partials: its persistent grid on this card."""
-    from cpuperformanceraytracer_tpu_torch.kernels.backward import _grid_blocks
-
-    return _grid_blocks(tables[0].device.index or 0, tables[0].shape[0],
-                        tables[1].shape[0], tables[2].shape[0], cfg.bounces,
-                        cfg.width, cfg.height)
+          + f"; two launches bit-equal; lane utilisation {util:.4f}; "
+          f"ptxas: {regs}")
+    return dict(max_abs_err=strict_err, rel_l2_1280x720=rels,
+                bit_equal_twice=True, lane_utilisation=util, ptxas=regs)
 
 
 def phase_kernel_d(dev, planes, idx, tex) -> dict:
     """Phase 7: kernel D vs its plain version and a float64 texel sum."""
-    from cpuperformanceraytracer_tpu_torch.kernels.env_backward import (
-        env_backward,
-        env_backward_reference,
-    )
-    from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
-
     gen = torch.Generator(device=dev).manual_seed(1)
     g = torch.randn((3,) + tuple(idx.shape), device=dev, generator=gen)
-    mt = planes[6:9]
-    held = hold_env_backward(g, idx, mt, tex, "kernel D")
+    held = hold_env_backward(g, idx, planes[6:9], tex, "kernel D")
     max_err, worst, count = held["max_err"], held["worst"], held["count"]
     flat, vals = held["flat"], held["vals"]
-    n_tex = tex.width * tex.height
     nonzero = (vals != 0).any(1)
-    busiest_nz = int(torch.bincount(flat[nonzero], minlength=n_tex).max())
-    ms = cuda_ms(lambda: env_backward(g, idx, mt, tex), 200)
-    plain_ms = cuda_ms(lambda: env_backward_reference(g, idx, mt, tex), 20)
-    scatter = torch.zeros((n_tex, 3), device=dev)
-    library_ms = cuda_ms(lambda: scatter.index_add_(0, flat, vals), 200)
-    # 40 calls a window: a call is some ten launches (the sort's), and a
-    # window must stay under the stream's launch queue
-    held_ms = device_ms(lambda: env_backward(g, idx, mt, tex), 40, dev)
-    library_held_ms = device_ms(lambda: scatter.index_add_(0, flat, vals), 200,
-                                dev)
-    # the deterministic library call for the same sums: index_put_ with
-    # accumulate sorts under torch.use_deterministic_algorithms
-    torch.use_deterministic_algorithms(True)
-    try:
-        def det_call():
-            scatter.index_put_((flat,), vals, accumulate=True)
-
-        try:
-            det_ms, det_how = device_ms(det_call, 40, dev), "held full"
-        except RuntimeError:  # the call waits for the device: time it as it runs
-            det_ms, det_how = cuda_ms(det_call, 40), "back to back (it synchronises)"
-    finally:
-        torch.use_deterministic_algorithms(False)
-    # where D's time goes: its two kernels and the library sort between
-    by_kernel = device_ms_by_kernel(lambda: env_backward(g, idx, mt, tex))
-    split = {"runs": 0.0, "sort": 0.0, "sums": 0.0}
-    for name, t in by_kernel.items():
-        split["runs" if "env_runs_kernel" in name else
-              "sums" if "texel_sums_kernel" in name else "sort"] += t
-    n_px = idx.numel()
-    bnd = bound(n_px * (12 + 8 + 12 + 12) + 2 * 3 * 4 * n_tex, 9 * n_px)
+    busiest_nz = int(torch.bincount(flat[nonzero],
+                                    minlength=tex.width * tex.height).max())
     phase("kernel D", f"cot_mt equal; two calls bit-equal; texel sums within "
           f"{worst:.3g} of the "
           f"(k-1)*2^-24*sum|v| bound (max abs err {max_err:.3g}; busiest "
           f"texel {int(count.max())} pixels, {busiest_nz} with a nonzero "
-          f"addend ({int(nonzero.sum())} of {n_px} pixels); texel sums over "
-          f"4*2^-23*sum|v|: {held['over_fixed']} here, "
-          f"{held['library_over_fixed']} with index_add_); "
-          f"{ms:.4f} ms "
-          f"vs plain {plain_ms:.4f} ms vs index_add_ {library_ms:.4f} ms; "
-          f"held full {held_ms:.4f} ms vs deterministic index_put_ "
-          f"{det_ms:.4f} ms ({det_how}) vs index_add_ (atomics) "
-          f"{library_held_ms:.4f} ms; by kernel (profiler) "
-          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + " ms; "
-          f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-    return dict(max_abs_err=max_err, ms=held_ms, back_to_back_ms=ms,
-                plain_ms=plain_ms, bound=bnd, library_ms=det_ms,
-                library_call=f"index_put_(accumulate=True), deterministic, "
-                             f"{det_how}",
-                index_add_ms=library_ms, index_add_held_ms=library_held_ms,
-                device_ms_by_part=split,
-                bit_equal_twice=True,
+          f"addend ({int(nonzero.sum())} of {idx.numel()} pixels); texel "
+          f"sums over 4*2^-23*sum|v|: {held['over_fixed']})")
+    return dict(max_abs_err=max_err, bit_equal_twice=True,
                 busiest_texel={"all": int(count.max()), "nonzero": busiest_nz})
 
 
-def replay_profile(step, k: int) -> tuple:
-    """(launches, ms a step): one call of ``step`` (K training steps) on
-    the device, by kernel (torch.profiler's CUDA activity; a CUDA graph
-    replay shows each of its kernel nodes). The launches count kernels
-    A-D by name; the time goes to A, B, C, D's two kernels, D's library
-    sort and the rest (the small torch ops), each per step."""
+def replay_profile(step) -> dict:
+    """The launches of kernels A-D, by name, in one call of ``step`` on
+    the device (torch.profiler's CUDA activity; a CUDA graph replay shows
+    each of its kernel nodes)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    counts = {name: 0 for name in TRAIN_KERNELS.values()}
-    groups = {"A": ("render_planes_kernel",), "B": ("env_accumulate_kernel",),
-              "C": ("bwd_tables_kernel",),
-              "D": ("env_runs_kernel", "texel_sums_kernel"),
-              "D_sort": ("RadixSort", "fill_reverse_indices")}
-    ms = dict.fromkeys([*groups, "other"], 0.0)
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        for name in counts:
-            if name in e.key:
-                counts[name] += e.count
-        group = next((g for g, names in groups.items()
-                      if any(n in e.key for n in names)), "other")
-        ms[group] += us / 1e3 / k
-    return counts, ms
+    return {name: sum(e.count for e in prof.key_averages() if name in e.key)
+            for name in TRAIN_KERNELS.values()}
 
 
 # traces of the training run a short trace may take (see phase_training)
@@ -738,7 +508,7 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
                        b.contiguous().view(torch.int32))
 
 
-def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
+def phase_training(dev, scene, cam, tex, glass_cfg) -> dict:
     """Phase 8: the training path through the kernels, K = 16 steps a
     dispatch (one CUDA graph) and K = 1 (the per-step loop)."""
     from cpuperformanceraytracer_tpu_torch.diff.benchgrad import (
@@ -751,7 +521,6 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
     from cpuperformanceraytracer_tpu_torch.diff.grad import (
         loss_and_grad,
         render_for_params,
-        value_and_grad,
     )
     from cpuperformanceraytracer_tpu_torch.diff.inverse import (
         InverseProblem,
@@ -813,53 +582,20 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
                 f"training K={k}: device launches {launches}, expected "
                 f"{expect}; wrapper counts {wrapper}, expected "
                 f"{expect_wrapper} (trace {attempt} of {TRACE_ATTEMPTS})")
-        r = fwd_bwd_benchmark(cfg, scene, cam, tex, steps=STEPS,
-                              steps_per_dispatch=k, spans=2)
-        if not (r["grads_finite"] and traced["grads_finite"]) or r[
-                "steps_per_dispatch"] != k:
-            raise AssertionError(f"training K={k}: {r}")
-        if k > 1:
-            step_k = make_grad_step_k(loss_fn, k)
-
-            def call():
-                step_k(params, 1)
-        else:
-            def call():
-                value_and_grad(loss_fn, params, 1)
-        call()
-        per_call = r["ms_per_step"] * k
-        # windows of 2 calls; the sleep covers four times the host clock's
-        # time for them (~2 GHz)
-        n = 2
-        busy_ms = device_frame_ms(call, n, int(4 * n * per_call * 1e-3 * 2.0e9),
-                                  windows=8) / k
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            call()
-        enqueue_ms = (time.perf_counter() - t0) / n * 1e3
-        torch.cuda.synchronize()
-        runs[k] = dict(r, launches=launches, wrapper_launches=wrapper,
-                       trace_attempts=attempt,
-                       traced_ms_per_step=traced["ms_per_step"],
-                       device_busy_ms_per_step=busy_ms,
-                       idle_share=1.0 - busy_ms / r["ms_per_step"],
-                       host_enqueue_ms_per_dispatch=enqueue_ms)
-        phase("training bench", f"K={k}: {r['ms_per_step']:.4f} ms/step; "
-              f"{r['Mrays_per_s']:.1f} Mrays/s; spans {r['span_ms']} ms; "
-              f"device busy {busy_ms:.4f} ms/step; idle share "
-              f"{runs[k]['idle_share']:.4f}; host enqueue {enqueue_ms:.4f} "
-              f"ms/dispatch; traced run {traced['ms_per_step']:.4f} ms/step, "
-              f"device launches {launches} ({steps_run} steps; trace "
-              f"{attempt}), wrapper counts {wrapper}")
+        if not traced["grads_finite"] or traced["steps_per_dispatch"] != k:
+            raise AssertionError(f"training K={k}: {traced}")
+        runs[k] = dict(launches=launches, wrapper_launches=wrapper,
+                       trace_attempts=attempt, loss=traced["loss"])
+        phase("training bench", f"K={k}: gradients finite; device launches "
+              f"{launches} ({steps_run} steps; trace {attempt}), wrapper "
+              f"counts {wrapper}")
 
     # one replay of the K-step graph: K launches of each of kernels A-D
     step_k = make_grad_step_k(loss_fn, STEPS_PER_DISPATCH)
     got_sum, got_losses = step_k(params, 1)
     want = {name: STEPS_PER_DISPATCH for name in TRAIN_KERNELS.values()}
     for attempt in range(1, TRACE_ATTEMPTS + 1):        # as the traced runs
-        replay, replay_ms = replay_profile(lambda: step_k(params, 1),
-                                           STEPS_PER_DISPATCH)
+        replay = replay_profile(lambda: step_k(params, 1))
         if replay == want or any(replay[n] > want[n] for n in want):
             break
         print(f"[training bench] one replay: trace {attempt} short, "
@@ -953,19 +689,9 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
                              f"{adam.launches} times in the capture's "
                              f"warm-up run of 8 steps")
     g, u = runs[STEPS_PER_DISPATCH], runs[1]
-    phase("training path", f"K={STEPS_PER_DISPATCH}: "
-          f"{g['ms_per_step']:.4f} ms/step, device busy "
-          f"{g['device_busy_ms_per_step']:.4f}, idle share "
-          f"{g['idle_share']:.4f}, host enqueue "
-          f"{g['host_enqueue_ms_per_dispatch']:.4f} ms/dispatch; K=1: "
-          f"{u['ms_per_step']:.4f} ms/step, device busy "
-          f"{u['device_busy_ms_per_step']:.4f}, idle share "
-          f"{u['idle_share']:.4f}, host enqueue "
-          f"{u['host_enqueue_ms_per_dispatch']:.4f} ms/dispatch (1280x720 "
-          f"glass_spheres 8 bounces, counter RNG, env gradient_sky(512,256)); "
-          f"one replay launched {replay}, device ms a step by kernel "
-          + ", ".join(f"{n} {v:.4f}" for n, v in replay_ms.items())
-          + f"; graphed grad_sum and losses "
+    phase("training path", f"1280x720 glass_spheres 8 bounces, counter RNG, "
+          f"env gradient_sky(512,256): one replay of K={STEPS_PER_DISPATCH} "
+          f"launched {replay}; graphed grad_sum and losses "
           f"bit-equal to {STEPS_PER_DISPATCH} ungraphed steps; "
           f"{STEPS_PER_DISPATCH} graphed Adam steps bit-equal to ungraphed "
           f"capturable ones, Adam's kernel launched {adam_launches}; two "
@@ -973,9 +699,8 @@ def phase_training(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
           f"relative L2 " + ", ".join(f"{n} {v:.3e}" for n, v in rels.items())
           + "; cubemap step vs plain path "
           + ", ".join(f"{n} {v:.3e}" for n, v in crels.items())
-          + f"; inverse losses {[round(x, 6) for x in losses]}; GPU {gpu}")
+          + f"; inverse losses {[round(x, 6) for x in losses]}")
     summary = dict(k16=g, k1=u, replay_kernel_launches=replay,
-                   replay_ms_per_step_by_kernel=replay_ms,
                    graphed_bit_equal=True, adam_graphed_bit_equal=True,
                    grad_rel_l2_vs_plain=rels, bit_equal_twice=True,
                    cubemap_grad_rel_l2_vs_plain=crels, inverse_losses=losses)
@@ -998,29 +723,9 @@ def cubemap_texture(dev, size: int):
         [gradient_sky(size, size, seed=i) for i in range(6)]), dev)
 
 
-def graph_step_ms(step, calls: int = 16, replays: int = 20) -> float:
-    """Device milliseconds a call of ``step``, from replays of one CUDA
-    graph of ``calls`` calls (the gaps between its kernels included, as in
-    the training graph)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        step()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            step()
-    return cuda_ms(graph.replay, replays) / calls
-
-
 def phase_kernel_adam(dev) -> dict:
     """Adam's kernel at the train cells' leaf shapes: {cell: numbers}."""
-    from cpuperformanceraytracer_tpu_torch.kernels.adam import (
-        adam,
-        adam_reference,
-        adam_step,
-    )
+    from cpuperformanceraytracer_tpu_torch.kernels.adam import adam, adam_step
 
     out = {}
     for cell, texels in (("720p", 131072), ("1080p", 2097152)):
@@ -1030,12 +735,11 @@ def phase_kernel_adam(dev) -> dict:
         grads = [[torch.randn(s, device=dev, generator=gen) * 10.0 ** -(k % 4)
                   for s in shapes] for k in range(16)]
 
-        def fresh(**options):
+        def fresh():
             leaves = [t.clone().requires_grad_() for t in start]
-            return leaves, torch.optim.Adam(leaves, lr=0.01, **options)
+            return leaves, torch.optim.Adam(leaves, lr=0.01, capturable=True)
 
-        (got, opt_got), (want, opt_want) = (fresh(capturable=True)
-                                            for _ in range(2))
+        (got, opt_got), (want, opt_want) = fresh(), fresh()
         adam.launches = 0
         for gs in grads:
             for a, b, g in zip(got, want, gs):
@@ -1054,37 +758,11 @@ def phase_kernel_adam(dev) -> dict:
             if not all(bits_equal(x, y) for x, y in pairs):
                 raise AssertionError(f"Adam at {cell}: the kernel's params "
                                      f"or state differ from torch's")
-        # a step of each, the leaves' gradients set once
-        timed = {}
-        for name in ("kernel", "plain", "foreach", "fused"):
-            leaves, opt = fresh(capturable=True, fused=name == "fused" or None)
-            for p, g in zip(leaves, grads[0]):
-                p.grad = g
-            opt.step()          # the state, made outside the graph
-            states = [opt.state[p] for p in leaves]
-            plain_args = ([p.detach() for p in leaves], grads[0],
-                          [s["exp_avg"] for s in states],
-                          [s["exp_avg_sq"] for s in states],
-                          [s["step"] for s in states])
-            step = {"kernel": lambda: adam_step(opt),
-                    "plain": lambda: adam_reference(
-                        *plain_args, lr=0.01, beta1=0.9, beta2=0.999,
-                        eps=1e-8),
-                    "foreach": opt.step, "fused": opt.step}[name]
-            with torch.no_grad():
-                timed[name] = graph_step_ms(step)
         n = sum(math.prod(s) for s in shapes)
-        out[cell] = dict(elements=n, launches=made, ms=timed["kernel"],
-                         plain_ms=timed["plain"],
-                         library_ms={"foreach_capturable": timed["foreach"],
-                                     "fused": timed["fused"]},
-                         bound=bound(28 * n, 0))
+        out[cell] = dict(elements=n, launches=made)
         phase("kernel adam", f"{cell}: {n} values, 16 steps bit-equal to "
-              f"torch's capturable Adam; {timed['kernel']:.4f} ms a step "
-              f"(bound {out[cell]['bound'][0]:.4f}) vs plain "
-              f"{timed['plain']:.4f}, torch foreach {timed['foreach']:.4f}, "
-              f"fused {timed['fused']:.4f}; {made} launches for the 16 "
-              f"steps, counted from 0")
+              f"torch's capturable Adam; {made} launches for the 16 steps, "
+              f"counted from 0")
     return out
 
 
@@ -1178,16 +856,13 @@ def phase_kernel_g(dev, accum720) -> float:
     return err
 
 
-def phase_textured(dev, gpu) -> dict:
+def phase_textured(dev) -> dict:
     """Phase 12: the textured multi-sample path through kernels A, E, F
-    and the display through G; the timings of E, F and G at its shapes."""
+    and the display through G; kernel E at its shapes."""
     import os
 
     from cpuperformanceraytracer_tpu_torch.config import BENCH_CONFIGS
-    from cpuperformanceraytracer_tpu_torch.kernels.combine import (
-        combine_accumulate,
-        combine_accumulate_reference,
-    )
+    from cpuperformanceraytracer_tpu_torch.kernels.combine import combine_accumulate
     from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
     from cpuperformanceraytracer_tpu_torch.kernels.env_gather import (
         env_lookup,
@@ -1197,16 +872,11 @@ def phase_textured(dev, gpu) -> dict:
         pack_tables,
         render_planes,
     )
-    from cpuperformanceraytracer_tpu_torch.kernels.tonemap import (
-        tonemap,
-        tonemap_reference,
-    )
+    from cpuperformanceraytracer_tpu_torch.kernels.tonemap import tonemap
     from cpuperformanceraytracer_tpu_torch.render.driver import OfflineRenderer
-    from cpuperformanceraytracer_tpu_torch.render.frame import frame_blend
     from cpuperformanceraytracer_tpu_torch.scene.presets import scene_by_name
     from cpuperformanceraytracer_tpu_torch.texture.procedural import gradient_sky
     from cpuperformanceraytracer_tpu_torch.texture.texture import texture_from_array
-    from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
 
     cfg = BENCH_CONFIGS["textured_1080"].replace(
         warmup_frames=WARMUP, num_frames=TEXTURED_FRAMES, backend="cuda")
@@ -1216,7 +886,7 @@ def phase_textured(dev, gpu) -> dict:
     r = OfflineRenderer(cfg, texture=tex, scene=scene, camera=cam, silent=True)
     for k in kernels:
         k.launches = 0
-    timer = r.run()
+    r.run()
     launches = {k.__name__: k.launches for k in kernels}
     frames = WARMUP + TEXTURED_FRAMES
     expect = {"render_planes": cfg.spp * frames, "env_lookup": cfg.spp * frames,
@@ -1232,6 +902,7 @@ def phase_textured(dev, gpu) -> dict:
         raise AssertionError(f"image write launched G {tonemap.launches} times")
     launches["tonemap"] = tonemap.launches
     img_mean = float(r.image_u8().mean())
+    del r
 
     offs = {}
     two = cfg.replace(num_frames=2, warmup_frames=0)
@@ -1252,87 +923,41 @@ def phase_textured(dev, gpu) -> dict:
                                 f"{name} channel {ch}", 1e-2)
                          for ch in range(3))
         del a, b
-    rays = cfg.width * cfg.height * cfg.spp
-    mrays = timer.rays_per_second(rays) / 1e6
-    busy_ms = device_frame_ms(OfflineRenderer(
-        cfg, texture=tex, scene=scene, camera=cam, silent=True).step, 4)
-    idle = 1.0 - busy_ms / timer.mean_ms
 
-    # the kernels alone at this path's shapes: one frame's 16 samples
+    # kernel E vs its plain version at this path's shapes (1080p planes, a
+    # 2048x1024 env): every sample of one frame, phase 9's rules
     one = cfg.replace(spp=1)
     tables = pack_tables(scene, cam, cfg, dev)
     n_px = cfg.width * cfg.height
-    planes = torch.empty((cfg.spp, 12, cfg.height, cfg.width), device=dev)
-    e4 = torch.empty((cfg.spp, n_px, 4), device=dev)
+    planes = torch.empty((12, cfg.height, cfg.width), device=dev)
+    e4 = torch.empty((n_px, 4), device=dev)
     taps = torch.empty((n_px, 4), dtype=torch.int64, device=dev)
-    taps_s, taps_w = torch.empty_like(taps), torch.empty_like(taps)
-    # kernel E vs its plain version at this path's shapes (1080p planes, a
-    # 2048x1024 env): every sample of one frame, phase 9's rules
+    taps_w = torch.empty_like(taps)
     share_e, err_e = 1.0, 0.0
     for s_ in range(cfg.spp):
-        render_planes(tables, one, 3, sample0=s_, out=planes[s_])
-        env_lookup(planes[s_], tex, cfg, out=e4[s_],
-                   taps_out=taps if s_ == 0 else taps_s)
-        want = env_lookup_reference(planes[s_], tex, cfg, taps_out=taps_w)
-        same = ((taps if s_ == 0 else taps_s) == taps_w).all(-1)
+        render_planes(tables, one, 3, sample0=s_, out=planes)
+        env_lookup(planes, tex, cfg, out=e4, taps_out=taps)
+        want = env_lookup_reference(planes, tex, cfg, taps_out=taps_w)
+        same = (taps == taps_w).all(-1)
         share = same.double().mean().item()
         if share < 0.999:
             raise AssertionError(f"kernel E textured_1080 sample {s_}: taps "
                                  f"equal on {share:.4%}")
         torch.testing.assert_close(
-            e4[s_][same], want[same], rtol=1e-6, atol=0,
+            e4[same], want[same], rtol=1e-6, atol=0,
             msg=lambda m: f"kernel E textured_1080 sample {s_}: {m}")
         share_e = min(share_e, share)
-        err_e = max(err_e, (e4[s_][same] - want[same]).abs().max().item())
+        err_e = max(err_e, (e4[same] - want[same]).abs().max().item())
         del want, same
-    del taps_s, taps_w
-    acc = r.accum.clone()
-    ms_a = cuda_ms(lambda: render_planes(tables, one, 3, out=planes[0]), 20)
-    ms_e = cuda_ms(lambda: env_lookup(planes[0], tex, cfg, out=e4[0]), 100)
-    plain_ms_e = cuda_ms(lambda: env_lookup_reference(planes[0], tex, cfg), 5)
-    table = torch.stack([tex.r, tex.g, tex.b, torch.zeros_like(tex.r)], -1)
-    flat = taps[:, 0].contiguous()
-    lib_ms_e = cuda_ms(lambda: table.index_select(0, flat), 100)
-    args = (e4, planes[:, 0:3], planes[:, 6:9], acc, frame_blend(3))
-    ms_f = cuda_ms(lambda: combine_accumulate(*args), 50)
-    plain_ms_f = cuda_ms(lambda: combine_accumulate_reference(*args), 3)
-    ms_g = cuda_ms(lambda: tonemap(acc), 200)
-    held_g = device_ms(lambda: tonemap(acc), 200, dev)
-    plain_ms_g = cuda_ms(lambda: tonemap_reference(acc), 20)
-    texels = torch.unique(flat).numel()
-    # E: 5 planes read, one RGBX row written, the texels it touches read
-    bound_e = bound(n_px * (5 * 4 + 16) + 12 * texels, 40 * n_px)
-    # F: per sample an RGBX row and 6 planes read; the accumulator read
-    # and written
-    bound_f = bound(n_px * (cfg.spp * (16 + 6 * 4) + 2 * 12),
-                    n_px * (cfg.spp * 9 + 12))
-    bound_g = bound(n_px * 2 * 12, n_px * 3 * 20)
-    phase("textured path", f"{timer.mean_ms:.4f} ms/frame; {mrays:.1f} "
-          f"Mrays/s (primary, textured_1080: 1920x1080 glass_spheres 16 spp "
-          f"8 bounces, counter RNG, env gradient_sky(2048,1024)); launches "
+    phase("textured path", f"textured_1080 (1920x1080 glass_spheres 16 spp "
+          f"8 bounces, counter RNG, env gradient_sky(2048,1024)): launches "
           f"{launches}; image mean {img_mean:.2f}; vs plain path "
           + ", ".join(f"{k} {v:.5%} px off" for k, v in offs.items())
-          + f"; device busy {busy_ms:.4f} ms/frame, idle share {idle:.4f}; "
-          f"E vs plain on 16 samples: taps equal on >= {share_e:.5%}, rows "
-          f"max abs err {err_e:.3g} where equal; "
-          f"A {ms_a:.4f} ms a sample; E {ms_e:.4f} ms (plain {plain_ms_e:.3f}, index_select "
-          f"{lib_ms_e:.4f}, bound {bound_e[0]:.4f}, {texels} texels), F "
-          f"{ms_f:.4f} ms (plain {plain_ms_f:.3f}, bound {bound_f[0]:.4f}), "
-          f"G {held_g:.4f} ms held full, {ms_g:.4f} back to back (plain "
-          f"{plain_ms_g:.4f}, bound {bound_g[0]:.4f}); "
-          f"GPU {gpu}")
-    summary = dict(ms_per_frame=timer.mean_ms, Mrays_per_s=mrays,
-                   device_busy_ms_per_frame=busy_ms, idle_share=idle,
-                   frames=TEXTURED_FRAMES, warmup=WARMUP,
-                   megakernel_ms_per_sample=ms_a,
+          + f"; E vs plain on 16 samples: taps equal on >= {share_e:.5%}, "
+          f"rows max abs err {err_e:.3g} where equal")
+    summary = dict(frames=TEXTURED_FRAMES, warmup=WARMUP,
                    px_off_vs_plain=offs, image_mean=img_mean)
-    return dict(launches=launches, summary=summary,
-                e=dict(ms=ms_e, plain_ms=plain_ms_e, library_ms=lib_ms_e,
-                       bound=bound_e), err_e=err_e,
-                f=dict(ms=ms_f, plain_ms=plain_ms_f, library_ms=None,
-                       bound=bound_f),
-                g=dict(ms=held_g, back_to_back_ms=ms_g, plain_ms=plain_ms_g,
-                       library_ms=None, bound=bound_g))
+    return dict(launches=launches, summary=summary, err_e=err_e)
 
 
 def phase_checkpoint(dev) -> None:
@@ -1391,13 +1016,14 @@ def phase_probes(dev, gpu, probe_log: str) -> tuple:
     """Phase 14: the probe entry points with counted launches, then K6-K8
     against their plain versions; the four kernels' JSON rows. Times are
     device times with the stream held full (``device_ms``), except the
-    plain K6 (7290 torch ops a call, timed back to back)."""
+    plain K6 (7290 torch ops a call: two calls back to back, timed on the
+    host's clock to a synchronise)."""
     from cpuperformanceraytracer_tpu_torch.probes import (
         gather_bench,
         overlap_probe,
         trace_probe,
     )
-    from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
+    from cpuperformanceraytracer_tpu_torch.utils.timing import Timer, device_ms
 
     def dms(fn, iters):
         return device_ms(fn, iters, dev)
@@ -1436,7 +1062,12 @@ def phase_probes(dev, gpu, probe_log: str) -> tuple:
                              f"{wg_err_plain} vs plain")
     if not bits_equal(wg, trace_probe.trace_dots(x, B, "wgmma")):
         raise AssertionError("K6 wgmma: two launches differ")
-    plain_k6 = cuda_ms(lambda: trace_probe.trace_dots_reference(x, B), 2, 1)
+    torch.cuda.synchronize()
+    with Timer() as plain_timer:
+        for _ in range(2):
+            trace_probe.trace_dots_reference(x, B)
+        torch.cuda.synchronize()
+    plain_k6 = plain_timer.ms / 2
     chain = trace_probe.REPEAT * n * 55
     flops_cc = trace_probe.REPEAT * n * trace_probe.NCOL * 15 + chain
     bound_cc = bound(n * 9 * 4, flops_cc)
@@ -1613,10 +1244,10 @@ def phase_probes(dev, gpu, probe_log: str) -> tuple:
             p1_gather_queries=p1["queries"])
 
 
-ORACLE_FRAMES = 4              # timed oracle frames at 720p (phase 15)
+ORACLE_FRAMES = 4              # oracle frames at 720p (phase 15)
 
 
-def phase_oracle(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
+def phase_oracle(dev, scene, cam, tex, glass_cfg) -> dict:
     """Phase 15: the oracle integrator (backend "oracle") on the card."""
     from cpuperformanceraytracer_tpu_torch.config import RenderConfig
     from cpuperformanceraytracer_tpu_torch.diff.benchgrad import (
@@ -1646,7 +1277,7 @@ def phase_oracle(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
     torch.cuda.reset_peak_memory_stats()
     oracle = OfflineRenderer(ocfg, texture=tex, scene=scene, camera=cam,
                              device=dev, silent=True)
-    timer = oracle.run()
+    oracle.run()
     frame_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     kernel = OfflineRenderer(glass_cfg.replace(num_frames=ORACLE_FRAMES,
                                                warmup_frames=0),
@@ -1683,15 +1314,13 @@ def phase_oracle(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
         return image_loss(render_for_params_replay(p, scene, cam, tex, rcfg,
                                                    frame), target)
 
-    out, peak_gib, secs = {}, {}, {}
+    out, peak_gib = {}, {}
     for name, fn in (("plain", plain_loss), ("replay", replay_loss)):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         out[name] = value_and_grad(fn, params, 1)
         torch.cuda.synchronize()
-        secs[name] = time.perf_counter() - t0
         peak_gib[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     (lp, gp), (lr, gr) = out["plain"], out["replay"]
     torch.testing.assert_close(lr, lp, rtol=1e-4, atol=1e-7)
@@ -1700,23 +1329,18 @@ def phase_oracle(dev, scene, cam, tex, glass_cfg, gpu) -> dict:
             raise AssertionError(f"path replay: plain {n} gradient is zero")
         torch.testing.assert_close(gr[n], gp[n], rtol=1e-4, atol=1e-7)
     phase("oracle", f"720p glass 8 bounces (wang, env gradient_sky(512,256)) "
-          f"{timer.mean_ms:.2f} ms/frame over {ORACLE_FRAMES} frames, peak "
-          f"{frame_peak:.2f} GiB; vs kernel route {off:.5%} px off; cornell "
-          f"256x64 vs kernel A route max abs err {diffuse_err:.3g}; path "
-          f"replay 320x180 8 bounces bilinear: grads equal plain (rtol "
-          f"1e-4), peak above the inputs plain {peak_gib['plain']:.3f} GiB "
-          f"({secs['plain']:.2f} s), replay {peak_gib['replay']:.3f} GiB "
-          f"({secs['replay']:.2f} s); GPU {gpu}")
-    return dict(ms_per_frame=timer.mean_ms, frames=ORACLE_FRAMES,
-                frame_peak_gib=frame_peak, px_off_vs_kernel_route=off,
-                diffuse_max_abs_err=diffuse_err,
+          f"over {ORACLE_FRAMES} frames, peak {frame_peak:.2f} GiB; vs kernel "
+          f"route {off:.5%} px off; cornell 256x64 vs kernel A route max abs "
+          f"err {diffuse_err:.3g}; path replay 320x180 8 bounces bilinear: "
+          f"grads equal plain (rtol 1e-4), peak above the inputs plain "
+          f"{peak_gib['plain']:.3f} GiB, replay {peak_gib['replay']:.3f} GiB")
+    return dict(frames=ORACLE_FRAMES, frame_peak_gib=frame_peak,
+                px_off_vs_kernel_route=off, diffuse_max_abs_err=diffuse_err,
                 replay_peak_gib=peak_gib["replay"],
-                plain_peak_gib=peak_gib["plain"], replay_s=secs["replay"],
-                plain_s=secs["plain"])
+                plain_peak_gib=peak_gib["plain"])
 
 
-SHARDED_STEPS = 5              # timed sharded training steps (phase 16)
-SCALING_FRAMES = 64            # timed frames a world (phase 16)
+SCALING_FRAMES = 64            # frames a world of the scaling harness (phase 16)
 
 
 def sync(dev) -> None:
@@ -1724,11 +1348,10 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def sharded_rank(cfg, params, target, steps: int, device: str) -> dict:
+def sharded_rank(cfg, params, target, device: str) -> dict:
     """Phase 16: one rank of a gloo world of 2 on the one card (px = 2;
-    then px = 1 x spp = 2): the frames, two training steps, the launches
-    of kernels A-D over them, and the step's and the gradient
-    all-reduce's times."""
+    then px = 1 x spp = 2): the frames, two training steps and the
+    launches of kernels A-D over them."""
     from cpuperformanceraytracer_tpu_torch.kernels.backward import bwd_tables
     from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
     from cpuperformanceraytracer_tpu_torch.kernels.env_backward import env_backward
@@ -1768,21 +1391,9 @@ def sharded_rank(cfg, params, target, steps: int, device: str) -> dict:
     launches = {k.__name__: k.launches for k in kernels}
     twice = bool(torch.equal(loss, loss2) and all(
         bits_equal(grads[k], grads2[k]) for k in grads))
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
-    sync(dev)
-    ms_step = (time.perf_counter() - t0) / steps * 1e3
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        shard.allreduce_grads(grads, mesh)
-    sync(dev)
-    ms_allreduce = (time.perf_counter() - t0) / steps * 1e3
     return dict(frames={k: v.cpu() for k, v in frames.items()},
                 loss=loss.cpu(), grads={k: g.cpu() for k, g in grads.items()},
-                bit_equal_twice=twice, elements=elements, launches=launches,
-                ms_step=ms_step, ms_grad_allreduce=ms_allreduce,
-                grad_elements=sum(g.numel() for g in grads.values()))
+                bit_equal_twice=twice, elements=elements, launches=launches)
 
 
 def native_and_trace(dev, scene, cam, tex, cfg) -> None:
@@ -1828,16 +1439,15 @@ def native_and_trace(dev, scene, cam, tex, cfg) -> None:
                              f"its kernels: {names}; {len(events)} events")
 
 
-def window_times(dev, scene, cam, cfg) -> dict:
+def windows(dev, scene, cam, cfg) -> int:
     """Phase 16: kernels A and C on the lower half of the frame's rows
-    (bit-equal to those rows of a whole launch; C twice), and each held
-    full on the window and on the whole frame."""
+    (bit-equal to those rows of a whole launch; C twice); returns the
+    window's rows."""
     from cpuperformanceraytracer_tpu_torch.kernels.backward import bwd_tables
     from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
         pack_tables,
         render_planes,
     )
-    from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
 
     h = cfg.height // 2
     half = dict(row0=h, local_height=h)
@@ -1848,6 +1458,7 @@ def window_times(dev, scene, cam, cfg) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4)
     cot6 = torch.randn((6, cfg.height, cfg.width), device=dev, generator=gen)
     cwin = cot6[:, h:].contiguous()
+    del cot6
     c1 = bwd_tables(tables, ccfg, 1, 0, cwin, **half)
     c2 = bwd_tables(tables, ccfg, 1, 0, cwin, **half)
     sync(dev)
@@ -1856,14 +1467,7 @@ def window_times(dev, scene, cam, cfg) -> dict:
                              "frame's rows")
     if not all(bits_equal(a, b) for a, b in zip(c1, c2)):
         raise AssertionError("kernel C: two window launches differ")
-    return {"rows": h,
-            "A_full": device_ms(lambda: render_planes(tables, cfg, 0), 20, dev),
-            "A_window": device_ms(
-                lambda: render_planes(tables, cfg, 0, **half), 20, dev),
-            "C_full": device_ms(
-                lambda: bwd_tables(tables, ccfg, 1, 0, cot6), 20, dev),
-            "C_window": device_ms(
-                lambda: bwd_tables(tables, ccfg, 1, 0, cwin, **half), 20, dev)}
+    return h
 
 
 def worlds(dev, scene, cam, tex, cfg) -> dict:
@@ -1887,7 +1491,6 @@ def worlds(dev, scene, cam, tex, cfg) -> dict:
         return make_frame_fn(c, scene, cam, dev)(
             tex, 3, torch.zeros((3, c.height, c.width), device=dev), 1.0)
 
-    secs, t_start = {}, time.perf_counter()
     one = shard.sharded_render_frame(scene, cam, tex, cfg, 3,
                                      make_mesh((1, 1), device=dev))
     if not torch.equal(one, unsharded(cfg)):
@@ -1898,18 +1501,9 @@ def worlds(dev, scene, cam, tex, cfg) -> dict:
     with torch.no_grad():
         target = render_for_params({}, scene, cam, tex, tcfg, 0)
     loss, grads = loss_and_grad(params, target, scene, cam, tex, tcfg, 1)
-    sync(dev)
-    t0 = time.perf_counter()
-    for _ in range(SHARDED_STEPS):
-        loss_and_grad(params, target, scene, cam, tex, tcfg, 1)
-    sync(dev)
-    ms_unsharded = (time.perf_counter() - t0) / SHARDED_STEPS * 1e3
-    t0 = time.perf_counter()
-    secs["references"] = t0 - t_start
     ranks = spawn_world(sharded_rank, 2, (
         cfg, {k: v.cpu() for k, v in params.items()}, target.cpu(),
-        SHARDED_STEPS, dev.type), backend="gloo", timeout=300)
-    secs["world_of_2"] = time.perf_counter() - t0
+        dev.type), backend="gloo", timeout=300)
     want = {rng: unsharded(cfg.replace(rng=rng)).cpu()
             for rng in ("wang", "counter")}
     want_spp = unsharded(cfg.replace(rng="counter", spp=2)).cpu()
@@ -1940,53 +1534,36 @@ def worlds(dev, scene, cam, tex, cfg) -> dict:
                 for k in ranks[0]["launches"]}
     if min(launches.values()) == 0:
         raise AssertionError(f"sharded path launches {launches}")
-    t0 = time.perf_counter()
     pts = measure_scaling(scene, cam, tex, cfg, device_counts=[1, 2],
                           frames=SCALING_FRAMES, backend="gloo", timeout=300)
-    secs["scaling"] = time.perf_counter() - t0
-    return dict(seconds=secs, spp2_max_abs_err=spp_err, loss=ranks[0]["loss"].item(),
+    if [p.devices for p in pts] != [1, 2] or not all(
+            math.isfinite(p.ms_per_frame) and p.ms_per_frame > 0 for p in pts):
+        raise AssertionError(f"scaling harness: {pts}")
+    return dict(spp2_max_abs_err=spp_err, loss=ranks[0]["loss"].item(),
                 loss_unsharded=loss.item(), grads_rel_l2=rel,
-                comm_elements=n_elements,
-                ms_per_step=[rk["ms_step"] for rk in ranks],
-                ms_per_step_unsharded_k1=ms_unsharded,
-                ms_grad_allreduce=[rk["ms_grad_allreduce"] for rk in ranks],
-                grad_allreduce_bytes=4 * ranks[0]["grad_elements"],
-                launches=launches, scaling=[vars(p) for p in pts])
+                comm_elements=n_elements, launches=launches)
 
 
-def phase_parallel(dev, scene, cam, tex, cfg, gpu) -> dict:
+def phase_parallel(dev, scene, cam, tex, cfg) -> dict:
     """Phase 16: kernels A and C on a row window; the parallel layer. (Its
     first part, the native codec and the profiler trace, runs after phase
     5: in a process where phases 6-15 had run, a CPU + CUDA profile of a
     frame recorded no kernel on the H100 machine.)"""
-    t0 = time.perf_counter()
-    win = window_times(dev, scene, cam, cfg)
-    t1 = time.perf_counter()
+    rows = windows(dev, scene, cam, cfg)
     w = worlds(dev, scene, cam, tex, cfg)
-    secs = time.perf_counter() - t0
-    w["seconds"]["windows"] = t1 - t0
-    phase("parallel", f"held full, whole frame / {win['rows']}-row window: A "
-          f"{win['A_full']:.4f} / {win['A_window']:.4f} ms (window = the "
-          f"frame's rows), C {win['C_full']:.4f} / {win['C_window']:.4f} ms "
-          f"(window bit-equal twice); world of 1 bit-equal; gloo world of 2 "
+    phase("parallel", f"A and C on a {rows}-row window: A = the frame's "
+          f"rows, C bit-equal twice; world of 1 bit-equal; gloo world of 2 "
           f"on one card: frames wang + counter bit-equal, px 1 x spp 2 max "
           f"abs err {w['spp2_max_abs_err']:.3g}, loss {w['loss']:.7g} vs "
           f"{w['loss_unsharded']:.7g}, grads rel L2 "
           + ", ".join(f"{k} {v:.2e}" for k, v in w["grads_rel_l2"].items())
           + f", two steps bit-equal, {w['comm_elements']} elements = budget; "
-          f"ms/step {[round(x, 4) for x in w['ms_per_step']]} (unsharded K=1 "
-          f"{w['ms_per_step_unsharded_k1']:.4f}); grad all-reduce "
-          f"{[round(x, 4) for x in w['ms_grad_allreduce']]} ms for "
-          f"{w['grad_allreduce_bytes']} B; launches {w['launches']}; scaling "
-          + ", ".join(f"{p['devices']}: {p['ms_per_frame']:.4f} ms/frame eff "
-                      f"{p['efficiency']:.3f}" for p in w["scaling"])
-          + f"; {secs:.1f} s ("
-          + ", ".join(f"{k} {v:.1f}" for k, v in w["seconds"].items())
-          + f"); GPU {gpu}")
-    return dict(window_ms=win, world2=w, seconds=secs)
+          f"launches {w['launches']}; the scaling harness ran worlds of 1 "
+          f"and 2")
+    return dict(window_rows=rows, world2=w)
 
 
-def phase_drivers(dev, gpu) -> dict:
+def phase_drivers(dev) -> dict:
     """Phase 17: the drivers of configs 5 and 4, the headline bench and
     the T ~ P training step (see the module docstring)."""
     import os
@@ -2046,12 +1623,10 @@ def phase_drivers(dev, gpu) -> dict:
 
     # config 5: 4K x 1024 frames, a checkpoint every 128, resumed
     cfg = BENCH_CONFIGS["offline_4k"]
-    t0 = time.perf_counter()
     (off, state), launches["offline_4k"] = counted(
         "offline_4k", lambda: run_offline(
             cfg, tex, os.path.join(OUT_DIR, "offline_4k.png")),
         ("render_planes", "env_accumulate", "tonemap"))
-    wall = time.perf_counter() - t0
     whole = OfflineRenderer(cfg, texture=tex, silent=True)
     whole.run()
     if not torch.equal(state.accum, whole.accum):
@@ -2082,24 +1657,15 @@ def phase_drivers(dev, gpu) -> dict:
     held["B_4k"] = {"indices_equal": same, "max_abs_err": err_b,
                     "chain_share_off": chain_off}
     del planes, planes_ref, accum0
-    off["device_busy_ms_per_frame"] = device_frame_ms(
-        OfflineRenderer(cfg, texture=tex, silent=True).step, 32)
-    off["idle_share"] = 1.0 - off["device_busy_ms_per_frame"] / off["ms_per_frame"]
-    off["seconds"] = wall
+    off = {k: off[k] for k in ("frames_total", "resumed_at_frame", "device")}
     phase("drivers", f"offline_4k {cfg.width}x{cfg.height} x "
           f"{off['frames_total']} frames, "
           f"resumed at {off['resumed_at_frame']}, bit-equal to one "
-          f"uninterrupted run: {off['ms_per_frame']:.4f} ms/frame, "
-          f"{off['Mrays_per_s']:.1f} Mrays/s, device busy "
-          f"{off['device_busy_ms_per_frame']:.4f} ms/frame (idle share "
-          f"{off['idle_share']:.4f}); wall {off['wall_s_phase1']:.2f} + "
-          f"{off['wall_s_phase2']:.2f} s, checkpoint saves "
-          f"{off['checkpoint_save_s']:.2f} s; launches "
-          f"{launches['offline_4k']}; one 4K frame: A vs plain (worst "
+          f"uninterrupted run; launches {launches['offline_4k']}; one 4K frame: A vs plain (worst "
           f"{worst} {off4k[worst]:.5%} px off), B indices equal on "
           f"{same:.5%}, A->B vs plain chain {chain_off:.5%} px off; G on the "
           f"4K accumulator max abs err {held['G_4k']['max_abs_err']:.3g}, u8 "
-          f"equal on {held['G_4k']['u8_equal']:.5%}; GPU {gpu}")
+          f"equal on {held['G_4k']['u8_equal']:.5%}")
 
     # config 4: albedos and all 131072 texels at 256x144, 200 steps
     inv, launches["env_inverse"] = counted(
@@ -2148,15 +1714,14 @@ def phase_drivers(dev, gpu) -> dict:
     held["inverse_vs_plain_path"] = {
         "loss_max_rel_dev": loss_dev, "albedo_max_abs_dev": albedo_dev,
         "plain_loss_last": plain["loss_last"],
-        "plain_albedo_err_by_material": plain["albedo_err_by_material"],
-        "plain_ms_per_step_incl_compile": plain["ms_per_step_incl_compile"]}
-    inv = {k: v for k, v in inv.items() if k not in ("params", "losses")}
+        "plain_albedo_err_by_material": plain["albedo_err_by_material"]}
+    inv = {k: v for k, v in inv.items() if k not in (
+        "params", "losses", "ms_per_step_incl_compile", "ms_per_step_steady",
+        "steady_steps")}
     phase("drivers", f"env inverse {inv['config']}, {inv['steps']} steps at "
           f"K = {inv['steps_per_dispatch']}: loss {inv['loss_first']:.6f} -> "
           f"{inv['loss_last']:.6f}, albedo max err "
-          f"{inv['albedo_max_err']:.4f}, finite; "
-          f"{inv['ms_per_step_incl_compile']:.4f} ms/step with the capture, "
-          f"{inv['ms_per_step_steady']:.4f} at steady state; launches "
+          f"{inv['albedo_max_err']:.4f}, finite; launches "
           f"{launches['env_inverse']}; albedo err by material "
           + ", ".join(f"{e:.4f}" for e in inv["albedo_err_by_material"])
           + "; one step's gradients vs plain path relative L2 "
@@ -2174,10 +1739,9 @@ def phase_drivers(dev, gpu) -> dict:
         "headline", lambda: bench.headline(bench.HEADLINE, tex),
         ("render_planes", "env_accumulate", "bwd_tables", "env_backward"))
     if not head["fwd_bwd_grads_finite"]:
-        raise AssertionError(f"headline: gradients not finite: {head}")
-    print(json.dumps(head), flush=True)
-    phase("drivers", f"headline: {head['value']:.1f} Mrays/s forward, "
-          f"{head['fwd_bwd_ms_per_step']:.4f} ms/step fwd+bwd; launches "
+        raise AssertionError("headline: gradients not finite")
+    head = {k: head[k] for k in ("metric", "device", "fwd_bwd_grads_finite")}
+    phase("drivers", f"headline {head['metric']}: gradients finite; launches "
           f"{launches['headline']}")
 
     # config 3's regime: T ~ P (a 2048x1024 env at 720p)
@@ -2203,53 +1767,21 @@ def phase_drivers(dev, gpu) -> dict:
     d = hold_env_backward(g, idx, planes[6:9], big, "kernel D T ~ P")
     held["D_t_eq_p"] = {"max_abs_err": d["max_err"],
                         "worst_over_bound": d["worst"],
-                        "over_fixed": d["over_fixed"],
-                        "library_over_fixed": d["library_over_fixed"]}
+                        "over_fixed": d["over_fixed"]}
     del planes, d
-    tp["texels"], tp["pixels"] = big.width * big.height, tcfg.width * tcfg.height
+    tp = {"steps_per_dispatch": tp["steps_per_dispatch"], "loss": tp["loss"],
+          "texels": big.width * big.height,
+          "pixels": tcfg.width * tcfg.height}
     phase("drivers", f"T ~ P step ({tcfg.width}x{tcfg.height}, env "
           f"{big.width}x{big.height}: {tp['texels']} texels, {tp['pixels']} "
-          f"pixels), K = {tp['steps_per_dispatch']}: "
-          f"{tp['ms_per_step']:.4f} ms/step ({tp['Mrays_per_s']:.1f} Mrays/s; "
-          f"spans {tp['span_ms']}; headline env 512x256: "
-          f"{head['fwd_bwd_ms_per_step']:.4f}); launches "
-          f"{launches['t_eq_p_step']}; kernel D at these shapes: cot_mt "
+          f"pixels), K = {tp['steps_per_dispatch']}: gradients finite; "
+          f"launches {launches['t_eq_p_step']}; kernel D at these shapes: cot_mt "
           f"equal, two calls bit-equal, texel sums within "
           f"{held['D_t_eq_p']['worst_over_bound']:.3g} of the "
           f"(k-1)*2^-24*sum|v| bound (max abs err "
           f"{held['D_t_eq_p']['max_abs_err']:.3g})")
-    tp.pop("param_leaves")
     return dict(offline_4k=off, env_inverse=inv, headline=head,
                 t_eq_p_step=tp, launches=launches, held=held)
-
-
-def phase_held_times(dev, planes, idx, tex, cfg, accum) -> dict:
-    """Phase 14, last: small kernels timed back to back and held full."""
-    from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
-    from cpuperformanceraytracer_tpu_torch.kernels.env_backward import env_backward
-    from cpuperformanceraytracer_tpu_torch.kernels.env_gather import env_lookup
-    from cpuperformanceraytracer_tpu_torch.kernels.tonemap import tonemap
-    from cpuperformanceraytracer_tpu_torch.utils.timing import device_ms
-
-    gen = torch.Generator(device=dev).manual_seed(1)
-    g = torch.randn((3,) + tuple(idx.shape), device=dev, generator=gen)
-    mt = planes[6:9]
-    vals = (g * mt).reshape(3, -1).t().contiguous()
-    scatter = torch.zeros((tex.width * tex.height, 3), device=dev)
-    flat, acc = idx.reshape(-1), accum.clone()
-    e4 = torch.empty((idx.numel(), 4), device=dev)
-    calls = {"env_accumulate": lambda: env_accumulate(planes, tex, cfg, acc, 0.5),
-             "env_backward": lambda: env_backward(g, idx, mt, tex),
-             "index_add_": lambda: scatter.index_add_(0, flat, vals),
-             "env_lookup": lambda: env_lookup(planes, tex, cfg, out=e4),
-             "tonemap": lambda: tonemap(accum)}
-    out = {k: dict(back_to_back_ms=cuda_ms(fn, 100),
-                   held_ms=device_ms(fn, 40 if k == "env_backward" else 100, dev))
-           for k, fn in calls.items()}
-    phase("held stream", "720p, ms back to back / held full: " + ", ".join(
-        f"{k} {v['back_to_back_ms']:.4f} / {v['held_ms']:.4f}"
-        for k, v in out.items()))
-    return out
 
 
 def main() -> int:
@@ -2258,10 +1790,7 @@ def main() -> int:
         return 1
     from cpuperformanceraytracer_tpu_torch.config import RenderConfig
     from cpuperformanceraytracer_tpu_torch.kernels import _build
-    from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import (
-        env_accumulate,
-        env_accumulate_reference,
-    )
+    from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
     from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
         pack_tables,
         render_planes,
@@ -2311,49 +1840,37 @@ def main() -> int:
     scene, cam = scene_by_name(cfg.scene, device=dev)
     tables = pack_tables(scene, cam, cfg, dev)
     planes = render_planes(tables, cfg, 0)
-    live_a, masks_a = [], []
-    planes_ref = render_planes_reference(tables, cfg, 0, live_segments=live_a,
-                                         live_masks=masks_a)
+    planes_ref = render_planes_reference(tables, cfg, 0)
     torch.cuda.synchronize()
     off, worst = hold_planes(planes, planes_ref, "kernel A")
     glass_err = (planes[:3] - planes_ref[:3]).abs().max().item()
-    ms_a = cuda_ms(lambda: render_planes(tables, cfg, 0), 20)
-    plain_ms_a = cuda_ms(lambda: render_planes_reference(tables, cfg, 0), 3, 1)
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
     render_planes(tables, cfg, 0, lane_stats=stats)
     util_a = stats[0].item() / stats[1].item()
-    util_pixel = lane_utilisation(masks_a, cfg.width)
-    del masks_a
     per_sm, sms = resident_blocks(tables)
     regs_a = ptxas_of(builds[0].log, "render_planes_kernel")
     phase("kernel A", f"cornell strict ok (max abs err {max_err_a:.3g}); "
           f"glass 1280x720 robust ok on 12 planes (worst {worst} "
           f"{off[worst]:.5%} px off; missed flags differ on "
-          f"{off['missed']:.5%}; rgb max abs err {glass_err:.3g}); "
-          f"{ms_a:.3f} ms vs plain {plain_ms_a:.3f} ms; lane utilisation "
-          f"{util_a:.4f} (one thread per pixel: {util_pixel:.4f}); "
-          f"{per_sm} blocks per SM x {sms} SMs; ptxas: {regs_a}")
+          f"{off['missed']:.5%}; rgb max abs err {glass_err:.3g}); lane "
+          f"utilisation {util_a:.4f}; {per_sm} blocks per SM x {sms} SMs; "
+          f"ptxas: {regs_a}")
 
     # ---- phase 4: kernel B vs plain on the same planes ------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     accum0 = torch.rand((3, 720, 1280), device=dev, generator=gen) * 3.0
-    blend = frame_blend(3)
     same_share, err_b, chain_off, gi = hold_env_accumulate(
-        planes, planes_ref, tex, cfg, accum0, blend, "kernel B")
-    scratch = accum0.clone()
-    ms_b = cuda_ms(lambda: env_accumulate(planes, tex, cfg, scratch, blend), 200)
-    plain_ms_b = cuda_ms(
-        lambda: env_accumulate_reference(planes, tex, cfg, scratch, blend), 20)
+        planes, planes_ref, tex, cfg, accum0, frame_blend(3), "kernel B")
+    del planes_ref, accum0
     phase("kernel B", f"indices equal on {same_share:.5%}; accum allclose "
           f"(max abs err {err_b:.3g}); chain A->B vs plain chain "
-          f"{chain_off:.5%} px off; {ms_b:.4f} ms vs plain "
-          f"{plain_ms_b:.4f} ms")
+          f"{chain_off:.5%} px off")
 
     # ---- phase 5: the main path -----------------------------------------
     r = OfflineRenderer(cfg, texture=tex, scene=scene, camera=cam, silent=True)
     render_planes.launches = 0
     env_accumulate.launches = 0
-    timer = r.run()
+    r.run()
     launches = {"render_planes": render_planes.launches,
                 "env_accumulate": env_accumulate.launches}
     expect = WARMUP + FRAMES
@@ -2371,149 +1888,110 @@ def main() -> int:
         plain.step()
     main_off = max(robust(accum[c], plain.accum[c], f"main path channel {c}",
                           1e-2) for c in range(3))
-    rays = cfg.width * cfg.height * cfg.spp
-    mrays = timer.rays_per_second(rays) / 1e6
-    busy_ms = device_frame_ms(
-        OfflineRenderer(cfg, texture=tex, scene=scene, camera=cam,
-                        silent=True).step, FRAMES)
-    idle = 1.0 - busy_ms / timer.mean_ms
-    phase("main path", f"{timer.mean_ms:.4f} ms/frame; {mrays:.1f} Mrays/s "
-          f"(primary, 1280x720 glass_spheres 8 bounces, env "
-          f"gradient_sky(512,256)); "
-          f"launches {launches}; image mean {img.mean():.2f}; accum vs "
-          f"plain path {main_off:.5%} px off; device busy "
-          f"{busy_ms:.4f} ms/frame, idle share {idle:.4f}; GPU {gpu}")
+    del plain
+    phase("main path", f"1280x720 glass_spheres 8 bounces, env "
+          f"gradient_sky(512,256): launches {launches}; image mean "
+          f"{img.mean():.2f}; accum vs plain path {main_off:.5%} px off")
 
     # ---- phase 16, first part: the native codec, a profiler trace --------
-    t0 = time.perf_counter()
     native_and_trace(dev, scene, cam, tex, cfg)
-    phase("parallel", f"native codec = numpy path (make -C native); a "
-          f"profiler trace of one forward frame names kernel A "
-          f"({time.perf_counter() - t0:.1f} s)")
+    phase("parallel", "native codec = numpy path (make -C native); a "
+          "profiler trace of one forward frame names kernel A")
 
     # ---- phases 6-8 --------------------------------------------------------
     c = phase_kernel_c(dev, tables, cfg, builds[0].log)
     d = phase_kernel_d(dev, planes, gi, tex)
-    t = phase_training(dev, scene, cam, tex, cfg, gpu)
+    t = phase_training(dev, scene, cam, tex, cfg)
     adam_numbers = phase_kernel_adam(dev)
 
     # ---- phases 9-13: the textured multi-sample path ---------------------
     err_e = phase_kernel_e(dev, planes, cfg, tex)
     err_f = phase_kernel_f(dev)
     err_g = phase_kernel_g(dev, accum)
-    x = phase_textured(dev, gpu)
+    x = phase_textured(dev)
     phase_checkpoint(dev)
 
     # ---- phase 14: the probes --------------------------------------------
     probe_rows, probes = phase_probes(dev, gpu, builds[1].log)
-    probes["held_stream_720p"] = phase_held_times(dev, planes, gi, tex, cfg,
-                                                  accum)
 
     # ---- phase 15: the oracle integrator ----------------------------------
-    o = phase_oracle(dev, scene, cam, tex, cfg, gpu)
+    o = phase_oracle(dev, scene, cam, tex, cfg)
 
-    # ---- phase 16: the parallel layer, windows, native codec, trace -------
-    par = phase_parallel(dev, scene, cam, tex, cfg, gpu)
+    # ---- phase 16: the parallel layer, windows ----------------------------
+    par = phase_parallel(dev, scene, cam, tex, cfg)
 
     # ---- phase 17: the drivers of configs 5 and 4, the headline ----------
-    drv = phase_drivers(dev, gpu)
+    drv = phase_drivers(dev)
 
     # ---- the kernels' numbers ---------------------------------------------
-    n_px = cfg.width * cfg.height
-    tex_bytes = 3 * 4 * tex.width * tex.height
-    flops_a = sum(live_a) * segment_flops(tables) + n_px * FLOPS_CAMERA
-    bound_a = bound(12 * 4 * n_px, flops_a)
-    # kernel B as timed: 11 planes read, the accumulator read and written,
-    # the texture read once
-    bound_b = bound((11 + 6) * 4 * n_px + tex_bytes, 10 * n_px)
-
     def drv_launches(kernel: str) -> dict:
         """A kernel's launches on each driver of phase 17."""
         return {path: n[kernel] for path, n in drv["launches"].items()}
+
+    def train_launches(kernel: str) -> dict:
+        """A kernel's launches on the training paths of phases 8 and 16."""
+        return {"training": t["launches"][kernel],
+                "training_k1": t["launches_k1"][kernel],
+                "sharded_2_ranks": par["world2"]["launches"][kernel]}
 
     rows = [
         dict(name="megakernel",
              source="cpuperformanceraytracer_tpu_torch/csrc/megakernel.cu",
              replaces="cpuperformanceraytracer_tpu/kernels/megakernel.py:251",
              launches=launches["render_planes"], max_abs_err=glass_err,
-             ms=ms_a, plain_ms=plain_ms_a, bound=bound_a, library_ms=None,
              launches_by_path={"forward": launches["render_planes"],
-                               "training": t["launches"]["render_planes"],
-                               "training_k1": t["launches_k1"]["render_planes"],
-                               "sharded_2_ranks": par["world2"]["launches"]["render_planes"],
+                               **train_launches("render_planes"),
                                **drv_launches("render_planes")},
-             window={"row0": 360, "local_height": 360,
-                     "held_ms": par["window_ms"]["A_window"],
-                     "full_held_ms": par["window_ms"]["A_full"]},
-             live_segments=sum(live_a), lane_utilisation=util_a,
-             lane_utilisation_one_thread_per_pixel=util_pixel,
-             resident_blocks_per_sm=per_sm, ptxas=regs_a),
+             lane_utilisation=util_a, resident_blocks_per_sm=per_sm,
+             ptxas=regs_a),
         dict(name="env_accumulate",
              source="cpuperformanceraytracer_tpu_torch/csrc/env_accumulate.cu",
              replaces="cpuperformanceraytracer_tpu/kernels/megakernel.py:1162",
              launches=launches["env_accumulate"], max_abs_err=err_b,
-             ms=ms_b, plain_ms=plain_ms_b, bound=bound_b, library_ms=None,
              launches_by_path={"forward": launches["env_accumulate"],
-                               "training": t["launches"]["env_accumulate"],
-                               "training_k1": t["launches_k1"]["env_accumulate"],
-                               "sharded_2_ranks": par["world2"]["launches"]["env_accumulate"],
+                               **train_launches("env_accumulate"),
                                **drv_launches("env_accumulate")}),
         dict(name="bwd_tables",
              source="cpuperformanceraytracer_tpu_torch/csrc/backward.cu",
              replaces="cpuperformanceraytracer_tpu/kernels/backward.py:230",
              launches=t["launches"]["bwd_tables"],
-             launches_by_path={"training": t["launches"]["bwd_tables"],
-                               "training_k1": t["launches_k1"]["bwd_tables"],
-                               "sharded_2_ranks": par["world2"]["launches"]["bwd_tables"],
+             launches_by_path={**train_launches("bwd_tables"),
                                **drv_launches("bwd_tables")},
-             window={"row0": 360, "local_height": 360,
-                     "held_ms": par["window_ms"]["C_window"],
-                     "full_held_ms": par["window_ms"]["C_full"]},
              **c),
         dict(name="env_backward",
              source="cpuperformanceraytracer_tpu_torch/csrc/env_backward.cu",
              replaces="cpuperformanceraytracer_tpu/diff/segsum.py:46",
              launches=t["launches"]["env_backward"],
-             launches_by_path={"training": t["launches"]["env_backward"],
-                               "training_k1": t["launches_k1"]["env_backward"],
-                               "sharded_2_ranks": par["world2"]["launches"]["env_backward"],
+             launches_by_path={**train_launches("env_backward"),
                                **drv_launches("env_backward")},
              **d),
         dict(name="env_gather",
              source="cpuperformanceraytracer_tpu_torch/csrc/env_gather.cu",
              replaces="cpuperformanceraytracer_tpu/kernels/env_gather.py:102",
              launches=x["launches"]["env_lookup"],
-             max_abs_err=max(err_e, x["err_e"]),
-             **x["e"]),
+             max_abs_err=max(err_e, x["err_e"])),
         dict(name="combine",
              source="cpuperformanceraytracer_tpu_torch/csrc/combine.cu",
              replaces="cpuperformanceraytracer_tpu/kernels/combine.py:148",
-             launches=x["launches"]["combine_accumulate"], max_abs_err=err_f,
-             **x["f"]),
+             launches=x["launches"]["combine_accumulate"], max_abs_err=err_f),
         dict(name="tonemap",
              source="cpuperformanceraytracer_tpu_torch/csrc/tonemap.cu",
              replaces="cpuperformanceraytracer_tpu/kernels/tonemap.py:46",
              launches=x["launches"]["tonemap"], max_abs_err=err_g,
              launches_by_path={"textured": x["launches"]["tonemap"],
-                               **drv_launches("tonemap")},
-             **x["g"]),
+                               **drv_launches("tonemap")}),
         *(dict(name=f"adam_{cell}",
                source="cpuperformanceraytracer_tpu_torch/csrc/adam.cu",
                replaces=None, max_abs_err=0.0,
                launches_by_path={**t["adam_launches"],
                                  **drv_launches("adam")}, **numbers)
           for cell, numbers in adam_numbers.items()),
-        *probe_rows,
     ]
-    for r in rows:
-        r["route"] = "cuda"
+    for r in probe_rows:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
-    print(json.dumps({"kernels": rows,
-                      "main_path": {"ms_per_frame": timer.mean_ms,
-                                    "Mrays_per_s": mrays,
-                                    "device_busy_ms_per_frame": busy_ms,
-                                    "idle_share": idle, "frames": FRAMES,
-                                    "warmup": WARMUP},
+    for r in rows + probe_rows:
+        r["route"] = "cuda"
+    print(json.dumps({"kernels": rows + probe_rows,
                       "training_path": t["summary"],
                       "textured_path": x["summary"],
                       "oracle": o, "probes": probes, "parallel": par,

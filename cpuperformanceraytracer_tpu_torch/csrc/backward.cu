@@ -444,7 +444,6 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int MIN_BLOCKS = 4;
 constexpr int CHUNK = 8;  // consecutive pixels a warp takes at a time
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int N_CLOCKS = 6;  // refill, segment, finish, sums, rows out, all
 
 // Sum v[0..n) over the lanes that pass the same ``key`` (a tree in lane
 // order: each lane's successor in its group found by pointer jumping);
@@ -482,13 +481,11 @@ __device__ __forceinline__ void warp_add(float* row, const Cells& C, Contrib& c)
     __syncwarp();
 }
 
-template <bool PROF>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 bwd_tables_kernel(Params P, const float* __restrict__ quad_tbl,
                   const float* __restrict__ sph_tbl, const float* __restrict__ mat_tbl,
                   const float* __restrict__ cam_tbl, const float* __restrict__ cot6,
-                  float* __restrict__ partials, unsigned long long* __restrict__ lane_stats,
-                  unsigned long long* __restrict__ clocks) {
+                  float* __restrict__ partials, unsigned long long* __restrict__ lane_stats) {
     extern __shared__ float smem[];
     const SceneSmem S = load_scene(P, quad_tbl, sph_tbl, mat_tbl, cam_tbl, smem);
     const Cells C = cell_layout(P.nq, P.ns, P.nm);
@@ -511,11 +508,8 @@ bwd_tables_kernel(Params P, const float* __restrict__ quad_tbl,
     int item = 0;
     Lane L;
     unsigned live = 0, slots = 0;
-    unsigned long long t[N_CLOCKS] = {};
 
     while (true) {
-        unsigned long long c0 = 0, c1 = 0;
-        if (PROF) c0 = clock64();
         // free lanes take the next pixels of the chunk, then of the next chunks
         bool fresh = false;
         unsigned idle = __ballot_sync(FULL, !busy);
@@ -543,10 +537,6 @@ bwd_tables_kernel(Params P, const float* __restrict__ quad_tbl,
         if (active == 0u) break;
         live += __popc(active);
         slots += 32;
-        if (PROF) {
-            c1 = clock64();
-            t[0] += c1 - c0;
-        }
 
         Contrib c;
         clear(c);
@@ -561,22 +551,10 @@ bwd_tables_kernel(Params P, const float* __restrict__ quad_tbl,
             }
             step_segment(L, P, S.quads, S.sph, S.inv_r, S.mats, S.cam, st, q, s);
         }
-        if (PROF) {
-            __syncwarp();
-            c0 = clock64();
-            t[1] += c0 - c1;
-        }
         if (busy && step_finish(L, P, S.quads, S.sph, S.inv_r, S.cam, C, st, q, s, c))
             busy = false;
-        if (PROF) {
-            __syncwarp();
-            c1 = clock64();
-            t[2] += c1 - c0;
-        }
         warp_add(row, C, c);
-        if (PROF) t[3] += clock64() - c1;
     }
-    const unsigned long long c0 = PROF ? clock64() : 0;
     __syncthreads();
     float* out = partials + (size_t)blockIdx.x * C.n;
     for (int i = threadIdx.x; i < C.n; i += THREADS) {
@@ -588,21 +566,12 @@ bwd_tables_kernel(Params P, const float* __restrict__ quad_tbl,
         atomicAdd(&lane_stats[0], (unsigned long long)live);
         atomicAdd(&lane_stats[1], (unsigned long long)slots);
     }
-    if (PROF && lane == 0) {
-        t[4] = clock64() - c0;
-        t[5] = t[0] + t[1] + t[2] + t[3] + t[4];
-        for (int i = 0; i < N_CLOCKS; ++i) atomicAdd(&clocks[i], t[i]);
-    }
 }
 
-// Both instances may take ``smem`` bytes of dynamic shared memory.
+// The kernel may take ``smem`` bytes of dynamic shared memory.
 cudaError_t allow_smem(size_t smem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bwd_tables_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(bwd_tables_kernel<true>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    return err;
+    return cudaFuncSetAttribute(bwd_tables_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 size_t smem_bytes(int nq, int ns, int nm, int bounces) {
@@ -625,7 +594,7 @@ int grid_blocks(int nq, int ns, int nm, int bounces, int n_px, int* blocks) {
     if (err == cudaSuccess && smem > (size_t)most_smem) return 0;
     if (err == cudaSuccess) err = allow_smem(smem);
     if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bwd_tables_kernel<false>,
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bwd_tables_kernel,
                                                             THREADS, smem);
     if (err != cudaSuccess) {
         cudaGetLastError();
@@ -651,13 +620,9 @@ extern "C" int cprt_bwd_tables_blocks(int nq, int ns, int nm, int bounces, int w
 }
 
 // Launch on ``stream``; ``partials`` is (blocks, n_cells) f32 with
-// ``blocks`` from cprt_bwd_tables_blocks (the instance with clocks takes
-// the same grid), n_cells = NQ*25 + NS*5 + NM*17 +
+// ``blocks`` from cprt_bwd_tables_blocks, n_cells = NQ*25 + NS*5 + NM*17 +
 // 8. ``lane_stats`` is null or two zeroed u64 (lanes that ran a step, lane
-// slots of all warp-iterations); ``clocks`` is null or six zeroed u64 that
-// receive the clock64 cycles lane 0 of every warp spent refilling, in
-// segment(), finishing steps, summing and writing the rows, and in all;
-// ``frame_base`` is null, or a device int added to ``frame``. The launch
+// slots of all warp-iterations); ``frame_base`` is null, or a device int added to ``frame``. The launch
 // replays global rows [row0, row0 + local_height) of the height-row image;
 // ``cot6`` is (6, local_height, width).
 extern "C" int cprt_bwd_tables(const float* quad_tbl, int nq, const float* sph_tbl, int ns,
@@ -667,8 +632,7 @@ extern "C" int cprt_bwd_tables(const float* quad_tbl, int nq, const float* sph_t
                                int sample0, int bounces, int env_draws,
                                int env_none, int roulette, int zangle, int jitter,
                                float aspect, unsigned long long* lane_stats,
-                               unsigned long long* clocks, const int* frame_base,
-                               void* stream) {
+                               const int* frame_base, void* stream) {
     Params P{width, height, frame, sample0, 1, bounces, nq, ns, nm,
              1, env_draws, env_none, roulette, zangle, jitter,
              aspect, 1.0f, frame_base, row0, local_height};
@@ -677,13 +641,8 @@ extern "C" int cprt_bwd_tables(const float* quad_tbl, int nq, const float* sph_t
     const size_t smem = smem_bytes(nq, ns, nm, bounces);
     const int err = (int)allow_smem(smem);
     if (err) return err;
-    if (clocks != nullptr) {
-        bwd_tables_kernel<true><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-            P, quad_tbl, sph_tbl, mat_tbl, cam_tbl, cot6, partials, lane_stats, clocks);
-    } else {
-        bwd_tables_kernel<false><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-            P, quad_tbl, sph_tbl, mat_tbl, cam_tbl, cot6, partials, lane_stats, clocks);
-    }
+    bwd_tables_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+        P, quad_tbl, sph_tbl, mat_tbl, cam_tbl, cot6, partials, lane_stats);
     return (int)cudaGetLastError();
 }
 

@@ -68,7 +68,7 @@ _DOS_DATE = (0, 1 << 5 | 1)     # 1980-01-01 00:00, ``zipfile.ZipInfo``'s
 _UNIX = 3
 _MODE = 0o600 << 16             # ?rw-------, ``zipfile``'s for a new member
 
-_pool = None    # (pid, workers, executor): a forked child makes its own
+_pool = None    # (pid, executor): a forked child makes its own
 
 # the JAX package's _IMAGE_FIELDS
 IMAGE_FIELDS = (
@@ -122,15 +122,14 @@ class _Member:
             zlib.Z_FINISH if last else zlib.Z_SYNC_FLUSH)
 
 
-def _executor() -> Tuple[int, ThreadPoolExecutor]:
-    """(workers, pool): the process's pool, a worker a CPU it may use
-    (zlib lets go of the GIL while it deflates or sums)."""
+def _executor() -> ThreadPoolExecutor:
+    """The process's pool, a worker a CPU it may use (zlib lets go of the
+    GIL while it deflates or sums)."""
     global _pool
     if _pool is None or _pool[0] != os.getpid():
-        workers = len(os.sched_getaffinity(0))
-        _pool = (os.getpid(), workers, ThreadPoolExecutor(
-            workers, thread_name_prefix="checkpoint"))
-    return _pool[1:]
+        _pool = (os.getpid(), ThreadPoolExecutor(
+            len(os.sched_getaffinity(0)), thread_name_prefix="checkpoint"))
+    return _pool[1]
 
 
 def _deflate(members) -> list:
@@ -142,11 +141,9 @@ def _deflate(members) -> list:
         for m in members for a, b in m.chunks]
     chunks = len(tasks) - len(members)
     if chunks > len(members):
-        workers, pool = _executor()
-        done = list(pool.map(lambda task: task(), tasks))
+        done = list(_executor().map(lambda task: task(), tasks))
     else:
-        workers, done = 1, [task() for task in tasks]
-    profiling.count_save(len(members), chunks, workers)
+        done = [task() for task in tasks]
     out, i = [], len(members)
     for m, crc in zip(members, done):
         n = len(m.chunks)

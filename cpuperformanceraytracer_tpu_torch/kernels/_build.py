@@ -71,7 +71,7 @@ _SIGNATURES = {
         _I, _I, _I,                       # frame sample0 bounces
         _I, _I, _I, _I, _I,               # env_draws env_none roulette zangle jitter
         _F,                               # aspect
-        _P, _P,                           # lane stats (2 u64), clocks (6 u64), nullable
+        _P,                               # lane stats (2 u64, nullable)
         _P,                               # frame base (1 int32, nullable)
         _P,                               # stream
     ],

@@ -113,18 +113,14 @@ def _grid_blocks(device_index: int, nq: int, ns: int, nm: int, bounces: int,
 
 
 def bwd_tables(tables, cfg, frame, sample0: int, cot6, lane_stats=None,
-               clocks=None, row0: int = 0, local_height=None):
+               row0: int = 0, local_height=None):
     """Kernel C wrapper: ``(d_quad, d_sph, d_mat, d_cam)``; ``frame`` is an
     int or a ``DeviceFrame``. ``cot6`` is (6, local_height, W): the
     cotangents of global rows [row0, row0 + local_height) of the image
     (all of it by default), which the launch replays.
 
     On the card, ``lane_stats`` (two zeroed int64) receives the lanes that
-    ran a step and the lane slots of all warp-iterations, and ``clocks``
-    (six zeroed int64) the clock64 cycles lane 0 of every warp spent
-    refilling, in ``segment()``, finishing steps (update or adjoint),
-    summing into the warps' rows, writing the partials, and in all; with
-    ``clocks`` an instrumented instance of the kernel runs."""
+    ran a step and the lane slots of all warp-iterations."""
     quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
     _require_counter(cfg)
     if quad_tbl.device.type == "cpu":
@@ -142,11 +138,11 @@ def bwd_tables(tables, cfg, frame, sample0: int, cot6, lane_stats=None,
         raise ValueError(f"bwd_tables: cot6 must be contiguous f32 (6, {h}, "
                          f"{w}) on {quad_tbl.device}, got {tuple(cot6.shape)} "
                          f"{cot6.dtype} {cot6.device}")
-    for name, t, n in (("lane_stats", lane_stats, 2), ("clocks", clocks, 6)):
-        if t is not None and (t.shape != (n,) or t.dtype != torch.int64
-                              or t.device != quad_tbl.device):
-            raise ValueError(f"bwd_tables: {name} must be ({n},) int64 on "
-                             f"{quad_tbl.device}")
+    if lane_stats is not None and (lane_stats.shape != (2,)
+                                   or lane_stats.dtype != torch.int64
+                                   or lane_stats.device != quad_tbl.device):
+        raise ValueError(f"bwd_tables: lane_stats must be (2,) int64 on "
+                         f"{quad_tbl.device}")
     sizes = [t.numel() for t in tables]
     blocks = _grid_blocks(quad_tbl.device.index or 0, quad_tbl.shape[0],
                           sph_tbl.shape[0], mat_tbl.shape[0], cfg.bounces,
@@ -169,8 +165,7 @@ def bwd_tables(tables, cfg, frame, sample0: int, cot6, lane_stats=None,
         int(cfg.env_mode == "none"), _ROULETTE[cfg.roulette],
         int(cfg.unit_vector_sampler == "zangle"), int(cfg.jitter),
         ctypes.c_float(_aspect(cfg)),
-        None if lane_stats is None else lane_stats.data_ptr(),
-        None if clocks is None else clocks.data_ptr(), base, stream)
+        None if lane_stats is None else lane_stats.data_ptr(), base, stream)
     check(err, "bwd_tables")
     profiling.count_launch(bwd_tables)
     flat = torch.sum(partials, dim=0)  # a fixed shape: a fixed order

@@ -177,7 +177,7 @@ def window(cfg, row0: int = 0, local_height=None) -> tuple:
 
 
 def render_planes_reference(tables, cfg, frame, sample0: int = 0,
-                            live_segments=None, live_masks=None, row0: int = 0,
+                            live_segments=None, row0: int = 0,
                             local_height=None) -> torch.Tensor:
     """Plain-torch kernel A: the per-object blend chain of the TPU
     kernel, vectorised over all pixels, every segment run with dead
@@ -186,9 +186,7 @@ def render_planes_reference(tables, cfg, frame, sample0: int = 0,
     [row0, row0 + local_height) of the image (all of it by default),
     each pixel keyed and cast from its global row. A list passed as
     ``live_segments`` receives the number of live paths at the start of
-    each segment (the segments the kernel runs); one passed as
-    ``live_masks`` receives the (local_height, W) bool mask of those
-    paths."""
+    each segment (the segments the kernel runs)."""
     quad_tbl, sph_tbl, mat_tbl, cam_tbl = tables
     dev = quad_tbl.device
     frame = frame_key(frame)
@@ -367,8 +365,6 @@ def render_planes_reference(tables, cfg, frame, sample0: int = 0,
         for _ in range(cfg.bounces + 1):
             if live_segments is not None:
                 live_segments.append(int(s["alive"].sum()))
-            if live_masks is not None:
-                live_masks.append(s["alive"].clone())
             bounce(s)
         return s
 

@@ -34,10 +34,9 @@ it is on:
   ``kernels/backward.bwd_tables``).
 
 ``read()`` gives ``{"lanes": {kernel: (live, slots)}, "phases_ms":
-{phase: mean device ms a step}, "checkpoint": {"saves", "members",
-"chunks", "workers"}}`` (it waits for the device); ``reset()`` zeroes
-the counters in place, so that pointers captured into a graph stay
-valid, and forgets the phases timed so far.
+{phase: mean device ms a step}}`` (it waits for the device);
+``reset()`` zeroes the counters in place, so that pointers captured
+into a graph stay valid, and forgets the phases timed so far.
 
 Under a CUDA graph the flag is read at capture. A graph captured with
 tracing on records its phase events and counts lanes at every replay,
@@ -55,11 +54,7 @@ made while the stream is capturing into the capture's tally instead. A
 graph captured inside ``capturing()`` keeps that tally and counts its
 replays; ``replayed_launches()`` gives the launches its replays made,
 apart from the wrappers' own counts: the tally times the replays, taken
-from the capture and not counted on the device. The checkpoint's save
-counts through ``count_save``, whatever the flag: the saves, their
-members and the chunks deflated since ``reset()``, and the threads the
-last save deflated on. A save whose every member is one chunk counts
-``chunks == members`` and one thread: the pool did not run it.
+from the capture and not counted on the device.
 
 The state is the process's: one tracing switch for all callers, as a
 profiler is one for the process.
@@ -90,9 +85,6 @@ _unowned = []
 _captures = weakref.WeakSet()
 # wrapper -> the launches it made while a stream was capturing
 _captured = collections.Counter()
-# the checkpoint saves since reset(): their count, members and chunks
-# deflated, and the threads that deflated the last one
-_saves = dict.fromkeys(("saves", "members", "chunks", "workers"), 0)
 
 
 def enable() -> None:
@@ -189,15 +181,6 @@ def count_launch(wrapper) -> None:
         wrapper.launches += 1
 
 
-def count_save(members: int, chunks: int, workers: int) -> None:
-    """Count one checkpoint save of ``members`` members in ``chunks``
-    chunks, deflated on ``workers`` threads."""
-    _saves["saves"] += 1
-    _saves["members"] += members
-    _saves["chunks"] += chunks
-    _saves["workers"] = workers
-
-
 class Capture:
     """What one CUDA graph's capture made: ``launches``, {wrapper:
     launches}, and ``phases``, its phase events; ``replays`` counts the
@@ -242,11 +225,9 @@ def replayed_launches() -> dict:
 
 
 def reset() -> None:
-    """Zero the lane counters in place and the checkpoint's counter, and
-    forget the phases timed."""
+    """Zero the lane counters in place and forget the phases timed."""
     for counter in _lanes.values():
         counter.zero_()
-    _saves.update(dict.fromkeys(_saves, 0))
     _timed.clear()
     for made in _captures:
         made.replayed = False
@@ -254,11 +235,10 @@ def reset() -> None:
 
 def read() -> dict:
     """``{"lanes": {kernel: (live, slots)}, "phases_ms": {phase: mean
-    device ms}, "checkpoint": {"saves", "members", "chunks", "workers"}}``
-    since ``reset()``: lanes summed over the cards (a kernel that ran no
-    lane is left out), each phase's mean over the steps timed outside a
-    graph and the steps of each graph's last replay, the checkpoint's
-    counter."""
+    device ms}}`` since ``reset()``: lanes summed over the cards (a
+    kernel that ran no lane is left out), each phase's mean over the
+    steps timed outside a graph and the steps of each graph's last
+    replay."""
     lanes = {}
     for (kernel, _), counter in _lanes.items():
         live, slots = counter.tolist()
@@ -272,8 +252,7 @@ def read() -> dict:
         end.synchronize()
         times[name].append(start.elapsed_time(end))
     return {"lanes": lanes,
-            "phases_ms": {name: sum(t) / len(t) for name, t in times.items()},
-            "checkpoint": dict(_saves)}
+            "phases_ms": {name: sum(t) / len(t) for name, t in times.items()}}
 
 
 @contextlib.contextmanager

@@ -12,7 +12,8 @@ the archive ``np.savez_compressed`` writes: with the chunk lowered to a
 test size, a save reads back whole in ``zipfile``, ``np.load`` and both
 packages' loaders, member for member as numpy's, within 0.5% of its
 size; at a member's chunk boundaries too; a failed save leaves the
-previous checkpoint; the tracing counts the saves and spans them.
+previous checkpoint; a save runs on the pool only where a member has
+more than one chunk, and the tracing spans it.
 """
 
 import dataclasses
@@ -20,6 +21,7 @@ import io
 import json
 import os
 import struct
+import threading
 import zipfile
 
 import jax.numpy as jnp
@@ -27,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import jax_cfg, port_cfg
+from torch_port_helpers import NOTHING_TRACED, jax_cfg, port_cfg
 from cpuperformanceraytracer_tpu.core.vecmath import Vec3 as JVec3
 from cpuperformanceraytracer_tpu.io import checkpoint as jckpt
 from cpuperformanceraytracer_tpu.render.driver import (
@@ -256,6 +258,18 @@ def test_parallel_save_round_trip(zip64_limit, tmp_path, monkeypatch):
     assert _directory(path)[1] == (zip64_limit is not None)
 
 
+def _count_deflates(monkeypatch) -> list:
+    """The threads that deflate chunks from now on, one name a chunk."""
+    deflate, names = ckpt._Member.deflate, []
+
+    def counted(member, a, b):
+        names.append(threading.current_thread().name)
+        return deflate(member, a, b)
+
+    monkeypatch.setattr(ckpt._Member, "deflate", counted)
+    return names
+
+
 @pytest.mark.parametrize("chunks, short", [(3, 0), (5, 1), (1, 1)],
                          ids=["multiple", "a_byte_short", "under_one"])
 def test_a_plane_at_the_chunk_boundaries(chunks, short, tmp_path,
@@ -267,8 +281,8 @@ def test_a_plane_at_the_chunk_boundaries(chunks, short, tmp_path,
     chunk = (n + short) // chunks
     assert chunk * chunks == n + short
     monkeypatch.setattr(ckpt, "CHUNK", chunk)
+    deflated = _count_deflates(monkeypatch)
     path = str(tmp_path / "c.npz")
-    profiling.reset()
     ckpt.save_checkpoint(path, torch.from_numpy(acc), 4, _cfg(acc))
     with zipfile.ZipFile(path) as z:
         assert z.testzip() is None
@@ -279,7 +293,7 @@ def test_a_plane_at_the_chunk_boundaries(chunks, short, tmp_path,
     sizes = [_npy_size(np.asanyarray(v)) for v in
              (ckpt.FORMAT_VERSION, 4, acc[0], acc[1], acc[2], config)]
     want = sum(-(-size // chunk) for size in sizes)
-    assert profiling.read()["checkpoint"]["chunks"] == want
+    assert len(deflated) == want
 
 
 @pytest.mark.parametrize("fault", ["worker", "write"])
@@ -318,21 +332,16 @@ def test_the_save_is_counted_and_spanned(tmp_path, monkeypatch):
     acc = torch.from_numpy(_accumulator())
     cfg = _cfg(acc.numpy())
     path = str(tmp_path / "c.npz")
-    profiling.reset()
+    deflated = _count_deflates(monkeypatch)
     ckpt.save_checkpoint(path, acc, 1, cfg)
-    got = profiling.read()["checkpoint"]
-    assert got["saves"] == 1 and got["members"] == len(MEMBERS)
-    assert got["chunks"] > got["members"]
-    assert got["workers"] == len(os.sched_getaffinity(0)) >= 1
+    assert len(deflated) > len(MEMBERS)
+    assert all(name.startswith("checkpoint") for name in deflated)
+    assert ckpt._executor()._max_workers == len(os.sched_getaffinity(0))
 
-    profiling.reset()
-    assert profiling.read()["checkpoint"] == dict(
-        saves=0, members=0, chunks=0, workers=0)
+    deflated.clear()
     small = torch.from_numpy(_accumulator(8, 16))
     ckpt.save_checkpoint(path, small, 1, _cfg(small.numpy()))
-    got = profiling.read()["checkpoint"]
-    assert got["chunks"] == got["members"] == len(MEMBERS)
-    assert got["workers"] == 1
+    assert deflated == [threading.current_thread().name] * len(MEMBERS)
 
     with profiling.trace(str(tmp_path / "t")):
         ckpt.save_checkpoint(path, acc, 2, cfg)
@@ -349,5 +358,4 @@ def test_the_save_is_counted_and_spanned(tmp_path, monkeypatch):
         assert child["ts"] + child["dur"] <= save["ts"] + save["dur"]
     counters = json.loads((tmp_path / "t" / profiling.COUNTERS_FILE)
                           .read_text())
-    assert counters["checkpoint"]["saves"] == 1
-    profiling.reset()
+    assert counters == NOTHING_TRACED

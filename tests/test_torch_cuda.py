@@ -694,22 +694,18 @@ def test_bwd_tables_bit_equal_twice_and_matches_plain(cuda_device, case, hw):
         torch.testing.assert_close(a, w, rtol=1e-3, atol=1e-3 * scale)
 
 
-def test_bwd_tables_counts_lanes_and_clocks(cuda_device):
-    """lane_stats counts a utilisation in (0, 1]; the instrumented instance
-    gives the same cotangents and cycles in every part, the parts summing
-    to the whole."""
+def test_bwd_tables_counts_lanes(cuda_device):
+    """lane_stats counts a utilisation in (0, 1], and counting leaves the
+    cotangents as they are."""
     tables, cfg = _beer_or_cornell("beer", 32, 128, cuda_device)
     cot6 = _cot6(cfg, cuda_device)
     stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
-    clocks = torch.zeros(6, dtype=torch.int64, device=cuda_device)
-    plain = bwd_tables(tables, cfg, 1, 0, cot6, lane_stats=stats)
-    timed = bwd_tables(tables, cfg, 1, 0, cot6, clocks=clocks)
+    counted = bwd_tables(tables, cfg, 1, 0, cot6, lane_stats=stats)
+    plain = bwd_tables(tables, cfg, 1, 0, cot6)
     torch.cuda.synchronize()
     live, slots = stats.tolist()
     assert 0 < live <= slots and slots % 32 == 0
-    parts = clocks.tolist()
-    assert min(parts) > 0 and sum(parts[:5]) == parts[5]
-    for a, b in zip(plain, timed):
+    for a, b in zip(counted, plain):
         assert torch.equal(a, b)
 
 

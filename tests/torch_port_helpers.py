@@ -17,9 +17,7 @@ import torch
 torch.set_num_threads(1)
 
 # what ``utils/profiling.read()`` gives with nothing recorded
-NOTHING_TRACED = {"lanes": {}, "phases_ms": {},
-                  "checkpoint": {"saves": 0, "members": 0, "chunks": 0,
-                                 "workers": 0}}
+NOTHING_TRACED = {"lanes": {}, "phases_ms": {}}
 
 
 @pytest.fixture
