@@ -120,6 +120,13 @@ _SIGNATURES = {
         _I,                               # maximize
         _P,                               # stream
     ],
+    "cprt_deflate": [
+        _P, _P, _I,                       # in (bytes), jobs (slices, 4), slices
+        _P, _I,                           # members (members, 3), members
+        _P, _P, _P, _P, _P,               # prev tokens records slots out_len (scratch)
+        _P, _P,                           # packed, member_out (members, 2)
+        _P,                               # stream
+    ],
     "cprt_tonemap": [
         _P, _P, _I, _F,                   # in, out (3, H, W), 3*H*W, exposure
         _P,                               # stream

@@ -1465,3 +1465,164 @@ def test_zeroing_the_adam_state_restarts_the_job(cuda_device):
     assert _bits_equal(first, again)
     for n in p:
         assert _bits_equal(after[n], p[n].detach()), n
+
+
+# ---- the checkpoint's deflate (csrc/deflate.cu) ----------------------------
+
+def _inflate(stream) -> bytes:
+    import zlib
+
+    z = zlib.decompressobj(-15)
+    out = z.decompress(bytes(stream)) + z.flush()
+    assert z.eof and not z.unused_data
+    return out
+
+
+def _deflate_bytes(kind: str, n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if kind == "zeros":
+        return np.zeros(n, np.uint8)
+    if kind == "random":
+        return rng.integers(0, 256, n, dtype=np.uint8)
+    count = -(-n // 4)
+    plane = 0.4 + 0.3 * np.sin(np.linspace(0, 6, count)) \
+        + 0.02 * rng.standard_normal(count)
+    return plane.astype(np.float32).view(np.uint8)[:n].copy()
+
+
+@pytest.mark.parametrize("kind", ["zeros", "random", "floats"])
+def test_deflate_kernel_equals_plain(cuda_device, kind):
+    """Bytes and CRC-32s, member for member, at small sizes: empty, one
+    byte, a ragged tail, a whole slice."""
+    import zlib
+
+    from cpuperformanceraytracer_tpu_torch.kernels import deflate as dfl
+
+    sizes = [2 * dfl.SLICE + 777, 0, 1, dfl.SLICE, 5000]
+    data = np.concatenate([_deflate_bytes(kind, n, i)
+                           for i, n in enumerate(sizes)])
+    starts = [zlib.crc32(b"head"), 0, 7, 0xFFFFFFFF, 12345]
+    before = dfl.deflate.launches
+    got = dfl.deflate(torch.from_numpy(data).to(cuda_device), sizes,
+                      starts).fetch()
+    assert dfl.deflate.launches == before + 1
+    want = dfl.deflate_reference(data, sizes, starts)
+    at = 0
+    for (g, gc), (w, wc), n, crc in zip(got, want, sizes, starts):
+        assert gc == wc == zlib.crc32(data[at:at + n], crc)
+        assert bytes(g) == w
+        assert _inflate(g) == data[at:at + n].tobytes()
+        at += n
+
+
+def _saved_planes(path):
+    with np.load(path, allow_pickle=False) as z:
+        return np.stack([z["r"], z["g"], z["b"]]), int(z["frame"])
+
+
+def test_deflated_save_round_trips_and_repeats(cuda_device, tmp_path,
+                                               monkeypatch):
+    """A CUDA save goes through the kernel, reads back bit-equal, and two
+    saves of one accumulator are the same bytes; a save that fails, in
+    the kernel's wrapper or in the write, leaves the checkpoint it had."""
+    import zipfile
+
+    from cpuperformanceraytracer_tpu_torch.io import checkpoint as ckpt
+    from cpuperformanceraytracer_tpu_torch.kernels import deflate as dfl
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    acc = torch.rand((3, 300, 500), generator=g, device=cuda_device) * 2
+    acc[:, :100] = 0.5                # a flat band the matches find
+    cfg = RenderConfig(width=500, height=300, rng="counter")
+    a, b = tmp_path / "a.npz", tmp_path / "b.npz"
+    before = dfl.deflate.launches
+    ckpt.save_checkpoint(str(a), acc, 7, cfg)
+    ckpt.save_checkpoint(str(b), acc, 7, cfg)
+    assert dfl.deflate.launches == before + 2
+    assert a.read_bytes() == b.read_bytes()
+    planes, frame = _saved_planes(a)
+    assert frame == 7
+    assert np.array_equal(planes.view(np.uint32),
+                          acc.cpu().numpy().view(np.uint32))
+    with zipfile.ZipFile(a) as z:
+        assert z.testzip() is None
+    back, frame, saved = ckpt.load_checkpoint(str(a))
+    assert frame == 7 and saved == cfg
+
+    def failing_deflate(*args, **kw):
+        raise RuntimeError("planted")
+
+    def failing_write(f, entries):
+        f.write(b"PK\x03\x04")
+        raise RuntimeError("planted")
+
+    for where, fault in ((dfl, ("deflate", failing_deflate)),
+                         (ckpt, ("_write_zip", failing_write))):
+        with monkeypatch.context() as m:
+            m.setattr(where, *fault)
+            with pytest.raises(RuntimeError, match="planted"):
+                ckpt.save_checkpoint(str(a), acc * 2, 8, cfg)
+        assert a.read_bytes() == b.read_bytes()
+        assert sorted(p.name for p in tmp_path.iterdir()) == ["a.npz",
+                                                              "b.npz"]
+
+
+def test_deflated_4k_render_against_numpy(cuda_device, tmp_path):
+    """A rendered 4K accumulator (config 5, 256 frames): its archive is
+    within +1% of ``np.savez_compressed``'s bytes and reads back
+    bit-equal; the kernel's time a save, in CUDA events."""
+    import time
+
+    from cpuperformanceraytracer_tpu_torch.config import BENCH_CONFIGS
+    from cpuperformanceraytracer_tpu_torch.io import checkpoint as ckpt
+    from cpuperformanceraytracer_tpu_torch.kernels import deflate as dfl
+
+    cfg = BENCH_CONFIGS["offline_4k"].replace(num_frames=256)
+    r = OfflineRenderer(cfg, texture=texture_from_array(
+        gradient_sky(512, 256), cuda_device), silent=True)
+    for _ in range(256):
+        r.step()
+    acc = r.accum
+    torch.cuda.synchronize()
+    path, plain = tmp_path / "c.npz", tmp_path / "numpy.npz"
+    for _ in range(2):                  # the second save's time
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(str(path), acc, r.frame, r.cfg)
+        save_s = time.perf_counter() - t0
+    data = acc.contiguous().view(-1).view(torch.uint8)
+    sizes = [data.numel() // 3] * 3
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    done = dfl.deflate(data, sizes)
+    end.record()
+    torch.cuda.synchronize()
+    kernel_ms = start.elapsed_time(end)
+    planes = acc.cpu().numpy()
+    t0 = time.perf_counter()
+    np.savez_compressed(plain, version=ckpt.FORMAT_VERSION, frame=r.frame,
+                        r=planes[0], g=planes[1], b=planes[2],
+                        config="{}")
+    numpy_s = time.perf_counter() - t0
+    size, ref = path.stat().st_size, plain.stat().st_size
+    print(f"4K save: {size} bytes against numpy's {ref} "
+          f"({100 * (size / ref - 1):+.4f}%); save {save_s * 1e3:.1f} ms, "
+          f"deflate launch to sizes {kernel_ms:.2f} ms, "
+          f"numpy {numpy_s * 1e3:.0f} ms; streams "
+          f"{sum(len(s) for s, _ in done.fetch())} bytes")
+    assert size <= 1.01 * ref
+    back, _ = _saved_planes(path)
+    assert np.array_equal(back.view(np.uint32), planes.view(np.uint32))
+
+
+def test_deflate_of_random_planes_stays_within_stored_bound(cuda_device):
+    from cpuperformanceraytracer_tpu_torch.kernels import deflate as dfl
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    n = 2160 * 3840 * 4
+    data = torch.randint(0, 256, (3 * n,), generator=g, dtype=torch.uint8,
+                         device=cuda_device)
+    got = dfl.deflate(data, [n] * 3).fetch()
+    slices = -(-n // dfl.SLICE)
+    for i, (stream, _) in enumerate(got):
+        assert len(stream) <= n + 5 * slices
+        assert _inflate(stream) == data[i * n:(i + 1) * n].cpu().numpy().tobytes()
