@@ -705,15 +705,10 @@ extern "C" int cprt_deflate(const uint8_t* in, const long long* jobs, int n_slic
                             uint8_t* packed, long long* member_out, void* stream) {
     using namespace dfl;
     static_assert(PARSE_SMEM <= 232448, "a slice's shared memory exceeds the SM's");
-    static bool configured = false;
     cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err = cudaSuccess;
-    if (!configured) {
-        err = cudaFuncSetAttribute(parse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   PARSE_SMEM);
-        if (err != cudaSuccess) return (int)err;
-        configured = true;
-    }
+    cudaError_t err = cudaFuncSetAttribute(
+        parse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PARSE_SMEM);
+    if (err != cudaSuccess) return (int)err;
     if (n_slices > 0) {
         chains_kernel<<<n_slices, 32, CHAINS_SMEM, s>>>(in, jobs, prev);
         if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
