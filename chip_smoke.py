@@ -148,15 +148,22 @@ Phases, one line each; any failure raises and the exit code is not 0:
    runs over worlds of 1 and 2 ranks at the forward workload;
 17. the drivers of BASELINE configs 5 and 4 and of the headline metric,
    run as a user runs them, each with the launch counts of kernels A, B,
-   C, D, G and Adam's set to 0 just before it and read just after (C and
-   D must launch where the driver takes gradients, Adam's kernel where
-   it trains; a CUDA graph's replays are not
+   C, D, G, Adam's and the deflate's set to 0 just before it and read
+   just after (C and D must launch where the driver takes gradients,
+   Adam's kernel where it trains, the deflate where it saves; a CUDA
+   graph's replays are not
    counted, its capture's warm-up run is): ``scripts.run_offline_4k.
    run_offline`` at 3840x2160 x 1024 frames (phase 1 to frame 512 with a
-   checkpoint every 128, a fresh renderer resumed for the rest), its
+   checkpoint every 128, a fresh renderer resumed for the rest, each save
+   deflated on the card), its
    accumulator bit-equal to one uninterrupted 1024-frame run without
    checkpoints, finite, with a nonzero mean; kernel G on its accumulator
-   by phase 11's rules, and one 4K frame of kernels A and B against their
+   by phase 11's rules; the deflate (``kernels/deflate.py``) on its three
+   planes laid end to end as a save lays them, each CRC-32 started from
+   the ``.npy`` header's: on the first 2 MiB of each plane the streams
+   and CRC-32s equal to ``deflate_reference``'s byte for byte, and the
+   whole planes' streams inflating to the planes; one 4K frame of
+   kernels A and B against their
    plain versions by phases 3 and 4's; ``scripts.inverse_env_demo.
    inverse_env`` at its own size (256x144, spp 2, 3 bounces, every one of
    the 131072 texels trained, 200 steps at K = 16), whose loss must fall
@@ -174,7 +181,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
    7's rules.
 
 Then one JSON line with each kernel's numbers (its error against the
-plain version, launches on the main paths; for a probe kernel its times
+plain version, the deflate's in bytes that differ, launches on the main
+paths, the deflate's bound over a 4K save's bytes; for a probe kernel its times
 and the bound: the larger of its bytes over 3.35 TB/s and its operations
 over the peak of their type (FP32 67 TFLOP/s, TF32 on the tensor cores
 495 TFLOP/s), counted from this run's inputs, and launches, those of the
@@ -374,6 +382,62 @@ def hold_tonemap(acc, what: str) -> tuple:
         raise AssertionError(f"kernel G {what}: u8 equal on {eq:.5%}, "
                              f"max off {d.max().item()}")
     return (got - want).abs().max().item(), eq, d.max().item()
+
+
+DEFLATE_CUT = 2 << 20           # bytes of each 4K plane held to the plain deflate
+
+
+def hold_deflate(accum: torch.Tensor, what: str) -> dict:
+    """The deflate kernel on ``accum``'s planes, laid end to end as a save
+    lays them, each CRC-32 started from its ``.npy`` header's: the first
+    ``DEFLATE_CUT`` bytes of each plane (the main path's slices, the
+    windows before them included) byte for byte and CRC for CRC equal to
+    the plain version's, and the whole planes' streams inflating to the
+    planes. Returns the bytes that differ, the launches, and the whole
+    save's bytes and bound."""
+    import io
+    import zlib
+
+    import numpy as np
+    from numpy.lib import format as npy
+
+    from cpuperformanceraytracer_tpu_torch.kernels.deflate import (
+        deflate,
+        deflate_reference,
+    )
+
+    planes = accum.detach().contiguous()
+    head = io.BytesIO()
+    npy.write_array_header_1_0(head, {"descr": "<f4", "fortran_order": False,
+                                      "shape": tuple(planes.shape[1:])})
+    starts = [zlib.crc32(head.getvalue())] * 3
+    raw = planes.view(3, -1).view(torch.uint8)
+    cut = raw[:, :DEFLATE_CUT].contiguous().view(-1)
+    made = deflate.launches
+    got = deflate(cut, [DEFLATE_CUT] * 3, starts).fetch()
+    want = deflate_reference(cut.cpu().numpy(), [DEFLATE_CUT] * 3, starts)
+    off = 0
+    for (g, gc), (w, wc) in zip(got, want):
+        g, w = np.frombuffer(bytes(g), np.uint8), np.frombuffer(w, np.uint8)
+        n = min(len(g), len(w))
+        off += abs(len(g) - len(w)) + int((g[:n] != w[:n]).sum()) + int(
+            gc != wc)
+    if off:
+        raise AssertionError(f"deflate {what}: the kernel's streams or CRCs "
+                             f"differ from the plain version's in {off} "
+                             f"bytes")
+    whole = deflate(raw.view(-1), [raw.shape[1]] * 3, starts).fetch()
+    host = raw.cpu().numpy()
+    for c, (stream, crc) in enumerate(whole):
+        body = zlib.decompressobj(-15).decompress(bytes(stream))
+        if body != host[c].tobytes() or crc != zlib.crc32(body, starts[c]):
+            raise AssertionError(f"deflate {what}: plane {c} does not "
+                                 f"inflate to its bytes")
+    written = sum(len(s) for s, _ in whole)
+    return dict(bytes_off=off, launches=deflate.launches - made,
+                cut_bytes=cut.numel(), plane_bytes=raw.numel(),
+                written_bytes=written,
+                bound=bound(raw.numel() + written, 0.0))
 
 
 def beer_scene(dev):
@@ -1577,6 +1641,7 @@ def phase_drivers(dev) -> dict:
     )
     from cpuperformanceraytracer_tpu_torch.kernels.adam import adam
     from cpuperformanceraytracer_tpu_torch.kernels.backward import bwd_tables
+    from cpuperformanceraytracer_tpu_torch.kernels.deflate import deflate
     from cpuperformanceraytracer_tpu_torch.kernels.env_accumulate import env_accumulate
     from cpuperformanceraytracer_tpu_torch.kernels.env_backward import env_backward
     from cpuperformanceraytracer_tpu_torch.kernels.megakernel import (
@@ -1601,7 +1666,7 @@ def phase_drivers(dev) -> dict:
 
     kernels = {"render_planes": render_planes, "env_accumulate": env_accumulate,
                "bwd_tables": bwd_tables, "env_backward": env_backward,
-               "tonemap": tonemap, "adam": adam}
+               "tonemap": tonemap, "adam": adam, "deflate": deflate}
 
     def counted(path, fn, need):
         """``fn()`` with the kernels' launch counts set to 0 just before it
@@ -1626,7 +1691,7 @@ def phase_drivers(dev) -> dict:
     (off, state), launches["offline_4k"] = counted(
         "offline_4k", lambda: run_offline(
             cfg, tex, os.path.join(OUT_DIR, "offline_4k.png")),
-        ("render_planes", "env_accumulate", "tonemap"))
+        ("render_planes", "env_accumulate", "tonemap", "deflate"))
     whole = OfflineRenderer(cfg, texture=tex, silent=True)
     whole.run()
     if not torch.equal(state.accum, whole.accum):
@@ -1639,6 +1704,7 @@ def phase_drivers(dev) -> dict:
     # kernel G on the 4K accumulator; kernels A and B on one 4K frame
     held["G_4k"] = dict(zip(("max_abs_err", "u8_equal", "u8_max_off"),
                             hold_tonemap(state.accum, "offline_4k accumulator")))
+    held["deflate_4k"] = hold_deflate(state.accum, "offline_4k accumulator")
     del state, whole
     scene, cam = scene_by_name(cfg.scene, device=dev)
     tables = pack_tables(scene, cam, cfg, dev)
@@ -1665,7 +1731,11 @@ def phase_drivers(dev) -> dict:
           f"{worst} {off4k[worst]:.5%} px off), B indices equal on "
           f"{same:.5%}, A->B vs plain chain {chain_off:.5%} px off; G on the "
           f"4K accumulator max abs err {held['G_4k']['max_abs_err']:.3g}, u8 "
-          f"equal on {held['G_4k']['u8_equal']:.5%}")
+          f"equal on {held['G_4k']['u8_equal']:.5%}; the deflate on its "
+          f"planes: the first {DEFLATE_CUT} bytes of each equal to the "
+          f"plain version's ({held['deflate_4k']['bytes_off']} bytes off), "
+          f"the whole planes inflate bit-equal, "
+          f"{held['deflate_4k']['written_bytes']} bytes written")
 
     # config 4: albedos and all 131072 texels at 256x144, 200 steps
     inv, launches["env_inverse"] = counted(
@@ -1980,6 +2050,13 @@ def main() -> int:
              launches=x["launches"]["tonemap"], max_abs_err=err_g,
              launches_by_path={"textured": x["launches"]["tonemap"],
                                **drv_launches("tonemap")}),
+        dict(name="deflate",
+             source="cpuperformanceraytracer_tpu_torch/csrc/deflate.cu",
+             replaces=None, launches=drv["held"]["deflate_4k"]["launches"],
+             max_abs_err=drv["held"]["deflate_4k"]["bytes_off"],
+             launches_by_path=drv_launches("deflate"),
+             bound_ms=drv["held"]["deflate_4k"]["bound"][0],
+             bound_by=drv["held"]["deflate_4k"]["bound"][1]),
         *(dict(name=f"adam_{cell}",
                source="cpuperformanceraytracer_tpu_torch/csrc/adam.cu",
                replaces=None, max_abs_err=0.0,

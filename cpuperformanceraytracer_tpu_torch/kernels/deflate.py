@@ -430,17 +430,6 @@ def deflate_reference(data, sizes: Sequence[int],
 
 # ---- the kernel ------------------------------------------------------------
 
-_pinned = None   # the host buffer the packed streams are copied into
-
-
-def _host_buffer(n: int) -> torch.Tensor:
-    """A pinned host buffer of at least ``n`` bytes, reused across calls."""
-    global _pinned
-    if _pinned is None or _pinned.numel() < n:
-        _pinned = torch.empty(max(n, 1), dtype=torch.uint8, pin_memory=True)
-    return _pinned
-
-
 def plan(sizes: Sequence[int], crc_starts: Sequence[int]):
     """The kernel's tables: jobs (slices, 4) int64, a slice's {offset of
     its first byte, bytes of its member before it that it may reach, its
@@ -460,8 +449,9 @@ def plan(sizes: Sequence[int], crc_starts: Sequence[int]):
 class Deflated:
     """What ``deflate`` made: ``fetch()`` gives [(stream, CRC-32)] a
     member. On the card the streams stay there, packed end to end, until
-    ``fetch()`` copies them into a pinned host buffer that the next call
-    reuses: its views are good until then."""
+    ``fetch()`` copies them into a pinned host buffer of the call's own,
+    which its views keep alive (torch's caching host allocator hands a
+    freed buffer to the next call, so a save pins no new pages)."""
 
     def __init__(self, streams=None, packed=None, sizes=None, crcs=None):
         self._streams, self._packed = streams, packed
@@ -471,7 +461,7 @@ class Deflated:
         if self._streams is not None:
             return self._streams
         total = sum(self._sizes)
-        host = _host_buffer(total)
+        host = torch.empty(max(total, 1), dtype=torch.uint8, pin_memory=True)
         host[:total].copy_(self._packed[:total])
         view, out, at = host.numpy(), [], 0
         for size, crc in zip(self._sizes, self._crcs):
@@ -502,23 +492,25 @@ def deflate(data: torch.Tensor, sizes: Sequence[int],
     n = len(jobs)
     scratch = lambda count, dtype: torch.empty(max(count, 1), dtype=dtype,
                                                device=dev)
-    jobs_d = torch.from_numpy(jobs).to(dev)
-    members_d = torch.from_numpy(members).to(dev)
-    prev = scratch(data.numel(), torch.int16)     # a chain an input byte
-    tokens = scratch(n * SLICE, torch.int32)
-    records = scratch(n * RECORD, torch.int32)
-    slots = scratch(n * SLOT, torch.uint8)
-    out_len = scratch(n, torch.int32)
-    packed = scratch(n * SLOT, torch.uint8)
-    member_out = scratch(2 * len(sizes), torch.int64)
-    err = load_library().cprt_deflate(
-        data.data_ptr(), jobs_d.data_ptr(), n, members_d.data_ptr(),
-        len(sizes), prev.data_ptr(), tokens.data_ptr(), records.data_ptr(),
-        slots.data_ptr(), out_len.data_ptr(), packed.data_ptr(),
-        member_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "deflate")
-    count_launch(deflate)
-    got = member_out[:2 * len(sizes)].view(-1, 2).tolist()
+    with torch.cuda.device(dev):
+        jobs_d = torch.from_numpy(jobs).to(dev)
+        members_d = torch.from_numpy(members).to(dev)
+        prev = scratch(data.numel(), torch.int16)     # a chain an input byte
+        tokens = scratch(n * SLICE, torch.int32)
+        records = scratch(n * RECORD, torch.int32)
+        slots = scratch(n * SLOT, torch.uint8)
+        out_len = scratch(n, torch.int32)
+        packed = scratch(n * SLOT, torch.uint8)
+        member_out = scratch(2 * len(sizes), torch.int64)
+        err = load_library().cprt_deflate(
+            data.data_ptr(), jobs_d.data_ptr(), n, members_d.data_ptr(),
+            len(sizes), prev.data_ptr(), tokens.data_ptr(),
+            records.data_ptr(), slots.data_ptr(), out_len.data_ptr(),
+            packed.data_ptr(), member_out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        check(err, "deflate")
+        count_launch(deflate)
+        got = member_out[:2 * len(sizes)].view(-1, 2).tolist()
     return Deflated(packed=packed, sizes=[b for b, _ in got],
                     crcs=[c for _, c in got])
 

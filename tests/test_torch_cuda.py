@@ -1515,6 +1515,21 @@ def test_deflate_kernel_equals_plain(cuda_device, kind):
         at += n
 
 
+def test_deflate_fetches_keep_their_own_bytes(cuda_device):
+    """A fetch's streams stay whole while later calls fetch theirs, as two
+    saves at once need."""
+    from cpuperformanceraytracer_tpu_torch.kernels import deflate as dfl
+
+    sizes = [dfl.SLICE + 99, 4000]
+    data = [np.concatenate([_deflate_bytes(kind, n, i)
+                            for i, n in enumerate(sizes)])
+            for kind in ("floats", "zeros", "random")]
+    got = [dfl.deflate(torch.from_numpy(d).to(cuda_device), sizes).fetch()
+           for d in data]
+    for d, streams in zip(data, got):
+        assert b"".join(_inflate(s) for s, _ in streams) == d.tobytes()
+
+
 def _saved_planes(path):
     with np.load(path, allow_pickle=False) as z:
         return np.stack([z["r"], z["g"], z["b"]]), int(z["frame"])
