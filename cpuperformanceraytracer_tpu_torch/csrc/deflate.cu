@@ -10,41 +10,39 @@
 //
 // Input: members laid end to end; each becomes one raw deflate stream made of
 // SLICE-byte slices, each of which may reach back WINDOW bytes into its member.
-// Five launches, a slice a block in the first four:
+// Three launches:
 //
-//   chains_kernel  one warp: each position of the slice is chained to the
-//                  nearest earlier position in its member with the same hash of
-//                  the next 3 bytes (prev, a distance, 0 for none in WINDOW).
-//                  The hash heads start from the window's last positions
-//                  (atomicMax, a max in any order); then the slice's positions go
-//                  32 a step (__match_any_sync orders a step's equal hashes).
-//                  32 KB of shared memory: several slices an SM at once.
-//   parse_kernel   the slice and its window, bytes and chains, in shared
-//                  memory; each thread parses SUB bytes with zlib's one-step
-//                  lazy evaluation over the first CHAIN candidates (tokens to
-//                  global memory, symbol counts into shared histograms, a match
-//                  stops at the thread's SUB bytes); each thread's CRC-32 of its
-//                  bytes, combined in a tree (zlib's multmodp / x2nmodp).
-//   encode_kernel  Moffat's in-place Huffman on the used symbols ranked by
-//                  (count, symbol) and miniz's Kraft repair give code lengths
-//                  <= 15 (7 for the code-length code); a prefix sum of the
-//                  threads' bit counts places every token, whose disjoint bits
-//                  are OR-ed into shared memory; a stored block where that is
-//                  smaller. All but a member's last slice end in a sync flush.
-//   pack_kernel    the slice's bytes at the sum of the slices' before it, so
-//                  the members' streams lie end to end for one copy to the host.
-//   finish_kernel  a block a member: its bytes, and its CRC-32 combined in a
-//                  tree from its slices', from the CRC of what precedes it.
+//   slices_kernel  a block a slice: the slice and the WINDOW bytes before it in
+//                  its member into shared memory; one warp chains the positions
+//                  by a hash of their next 3 bytes (__match_any_sync orders a
+//                  step's 32 positions, so each gets its nearest earlier one);
+//                  each thread parses SUB bytes with zlib's one-step lazy
+//                  evaluation over the first CHAIN candidates (tokens to global
+//                  memory, counts into shared histograms); Moffat's in-place
+//                  Huffman on the symbols ranked by (count, symbol) and miniz's
+//                  Kraft repair give code lengths <= 15 (7 for the code-length
+//                  code); a prefix sum of the threads' bit counts places every
+//                  token, whose disjoint bits are OR-ed into shared memory; a
+//                  stored block where that is smaller. All but a member's last
+//                  slice end in a sync flush. Each thread's CRC-32 of its bytes,
+//                  combined in a tree (zlib's multmodp / x2nmodp).
+//   pack_kernel    a block a slice: its offset, the sum of the slices before it,
+//                  and its bytes copied there, so the members' streams lie end
+//                  to end in one buffer for one copy to the host.
+//   finish_kernel  a thread a member: its bytes, and its CRC-32 combined from its
+//                  slices' in order, from the CRC of what precedes it in its file.
 //
-// No atomics whose order shows: counts are sums, heads maxima and OR-ed bits
-// disjoint, so the bytes are a function of the input alone.
+// No atomics whose order shows: counts are sums, and OR-ed bits are disjoint,
+// so the bytes are a function of the input alone.
 //
-// What bounds it: not bytes (99.5 MB read once is 0.03 ms at 3.35 TB/s) but
-// the chain walks of the parse, dependent shared-memory loads in divergent
-// threads with 200 KB of shared memory a block (one block an SM, 8 warps to
-// hide latency), then the chaining warp's serial steps. The split into
-// kernels lets the chains and the code building, which leave most of a
-// block idle, run several slices an SM.
+// What bounds it: not bytes (a 4K save, 99.5 MB read and 73.5 MB written, is
+// 0.052 ms at 3.35 TB/s) but the chaining warp's 2048 steps a slice while the
+// block's other warps wait, then the parse's chain walks, dependent
+// shared-memory loads in divergent threads; a slice's 207 KB of shared memory
+// keeps one block on an SM. The chains and the code building in launches of
+// their own would run several slices an SM (18 ms of kernels a 4K save against
+// about 35 here), a few per cent of a checkpointed interval: not worth the
+// global chains and the record format between the kernels that they need.
 //
 // The host build (tests/test_torch_deflate.py) defines DFL_DEV, DFL_SMEM,
 // DFL_CONST and the CUDA built-ins used here and runs the kernels with threads.
@@ -71,10 +69,7 @@ constexpr int LAZY = 32;           // a match this long is taken without a lazy 
 constexpr int TOO_FAR = 4096;      // a 3-byte match further back is not taken
 constexpr int SLOT = SLICE + 256;  // bytes of a slice's output
 constexpr uint32_t POLY = 0xEDB88320u;
-// a slice's record between the kernels (u32): its literal/length counts, its
-// distance counts, its CRC-32, and each thread's token count
-constexpr int REC_LL = 0, REC_D = 288, REC_CRC = 318, REC_NTOK = 320;
-constexpr int RECORD = REC_NTOK + THREADS;
+constexpr int FINISH_THREADS = 32;
 
 // x^(2^n) mod the CRC-32 polynomial (zlib's x2n_table)
 DFL_CONST uint32_t X2N[32] = {
@@ -84,47 +79,41 @@ DFL_CONST uint32_t X2N[32] = {
     0x6c8dedc4, 0x15d6874d, 0x5fde7a4e, 0xbad90e37, 0x2e4e5eef, 0x4eaba214, 0xa8a472c0,
     0x429a969e, 0x148d302a, 0xc40ba6d0, 0xc4e22c3c};
 
-// parse_kernel's shared memory beside the bytes and the chains
-struct Parse {
+// what a block keeps beside the bytes, the chains and the hash heads
+struct Misc {
     uint32_t crc_table[256];
-    uint32_t ll_freq[286];
-    uint32_t d_freq[30];
-    uint32_t crc[THREADS];      // CRC-32 of a thread's bytes, then of the tree's
-    uint32_t crc_len[THREADS];
-};
-
-// encode_kernel's shared memory beside the output's bits
-struct Enc {
-    uint32_t ll_freq[286];      // literal/length counts (EOB's 1 included)
+    uint32_t ll_freq[286];   // literal/length counts (EOB's 1 included)
     uint32_t d_freq[30];
     uint32_t cl_freq[19];
-    uint32_t hfreq[288];        // code_lengths' scratch: counts, two symbols at least
-    uint32_t hkey[288];         //   Moffat's array
-    uint16_t hsym[288];         //   the used symbols by (count, symbol)
-    uint16_t ll_code[286];      // canonical codes, bit-reversed
+    uint32_t hfreq[288];     // code_lengths' scratch: counts, two symbols at least
+    uint32_t hkey[288];      //   Moffat's array
+    uint16_t hsym[288];      //   the used symbols by (count, symbol)
+    uint16_t ll_code[286];   // canonical codes, bit-reversed
     uint16_t d_code[30];
     uint16_t cl_code[19];
     uint8_t ll_len[288];
     uint8_t d_len[32];
     uint8_t cl_len[20];
-    uint8_t rle_sym[320];       // the code-length symbols of the header
+    uint8_t rle_sym[320];    // the code-length symbols of the header
     uint8_t rle_extra[320];
-    uint32_t ntok[THREADS];     // tokens a thread parsed
-    uint32_t bits[THREADS];     // their bits, then the bit where they start
+    uint32_t ntok[THREADS];  // tokens a thread parsed
+    uint32_t bits[THREADS];  // their bits, then the bit where they start
+    uint32_t crc[THREADS];   // CRC-32 of a thread's bytes, then of the tree's
+    uint32_t crc_len[THREADS];
     int count[34];
     int hn, rle_n, hlit, hdist, hclen;
     uint32_t header_bits, token_bits;
     int out_bytes, dynamic;
 };
 
-constexpr int CHAINS_SMEM = 4 << HASH_BITS;
-constexpr int PARSE_PREV = REGION;                  // after the bytes
-constexpr int PARSE_MISC = PARSE_PREV + 2 * REGION;
-constexpr int PARSE_SMEM = PARSE_MISC + (int)sizeof(Parse);
-constexpr int ENC_WORDS = SLOT / 4 + 2;             // the output's bits
-constexpr int ENC_SMEM = 4 * ENC_WORDS + (int)sizeof(Enc);
+// shared memory: bytes, chains (after the parse: the output's bits), hash heads, Misc
+constexpr int DATA_OFF = 0;
+constexpr int PREV_OFF = REGION + 16;
+constexpr int HEAD_OFF = PREV_OFF + 2 * REGION;
+constexpr int MISC_OFF = HEAD_OFF + 2 * (1 << HASH_BITS);
+constexpr int SMEM_BYTES = MISC_OFF + (int)sizeof(Misc);
 constexpr int PACK_SMEM = THREADS * 8;
-constexpr int FINISH_SMEM = THREADS * 16;
+constexpr int FINISH_SMEM = 16;
 
 DFL_DEV int imin(int a, int b) { return a < b ? a : b; }
 
@@ -209,7 +198,7 @@ DFL_DEV uint32_t best_match(const uint8_t* data, const uint16_t* prev, int p, in
 // used symbols ranked by (count, symbol); Moffat and Katajainen's in-place
 // Huffman; lengths cut to max_len and the Kraft sum mended (miniz); the most
 // frequent symbols take the shortest codes
-DFL_DEV void code_lengths(const uint32_t* freq, int n, int max_len, uint8_t* len, Enc& m,
+DFL_DEV void code_lengths(const uint32_t* freq, int n, int max_len, uint8_t* len, Misc& m,
                           int tid) {
     for (int s = tid; s < n; s += THREADS) m.hfreq[s] = freq[s];
     __syncthreads();
@@ -318,67 +307,28 @@ DFL_DEV void put_bits(uint32_t* buf, uint32_t at, uint32_t value, int width) {
     if (sh + width > 32) atomicOr(&buf[w + 1], value >> (32 - sh));
 }
 
-// jobs[4 * slice] = {offset of the slice's first byte in `in`, bytes of its
-// member before it that it may reach (<= WINDOW), its bytes, bytes of its member
-// from its first on}; positions below are relative to the window's first byte
-
-// the chains of the slice's positions into prev (an entry an input byte)
-__global__ void __launch_bounds__(32)
-chains_kernel(const uint8_t* __restrict__ in, const long long* __restrict__ jobs,
-              uint16_t* __restrict__ prev) {
-    DFL_SMEM(smem);
-    uint32_t* head = reinterpret_cast<uint32_t*>(smem);   // latest position + 1
-    const int lane = threadIdx.x;
-    const long long* job = jobs + 4 * (long long)blockIdx.x;
-    const int window = (int)job[1], n = (int)job[2];
-    const long long rest = job[3];
-    const uint8_t* data = in + (job[0] - window);
-    uint16_t* out = prev + (job[0] - window);
-    const long long hashed = window + rest - 2;   // positions with 3 bytes
-
-    for (int i = lane; i < (1 << HASH_BITS); i += 32) head[i] = 0;
-    __syncwarp();
-    for (int q = lane; q < window; q += 32)
-        if (q < hashed) atomicMax(&head[hash3(data, q)], (uint32_t)(q + 1));
-    __syncwarp();
-    const unsigned below = (1u << lane) - 1u;
-    for (int base = window; base < window + n; base += 32) {
-        const int p = base + lane;
-        const bool has = p < window + n && p < hashed;
-        const uint32_t key = has ? hash3(data, p) : 0x10000u + (uint32_t)lane;
-        const unsigned group = __match_any_sync(0xFFFFFFFFu, key);
-        const unsigned lower = group & below;
-        int q = -1;
-        if (has) q = lower ? base + 31 - __clz(lower) : (int)head[key] - 1;
-        __syncwarp();
-        if (p < window + n) out[p] = (q >= 0 && p - q <= WINDOW) ? (uint16_t)(p - q) : 0;
-        if (has && (group >> lane) == 1u) head[key] = (uint32_t)(p + 1);
-        __syncwarp();
-    }
-}
-
-// the parse of the slice: tokens[slice][k][tid] (a literal its byte, a match
-// 1 << 31 | length << 16 | distance) and the slice's record
+// one slice: jobs[4 * slice] = {offset of its first byte in `in`, bytes of its
+// member before it that it may reach (<= WINDOW), its bytes, 1 if its member's last}
 __global__ void __launch_bounds__(THREADS, 1)
-parse_kernel(const uint8_t* __restrict__ in, const long long* __restrict__ jobs,
-             const uint16_t* __restrict__ prev_in, uint32_t* __restrict__ tokens,
-             uint32_t* __restrict__ records) {
+slices_kernel(const uint8_t* __restrict__ in, const long long* __restrict__ jobs,
+              uint32_t* __restrict__ tokens, uint8_t* __restrict__ slots,
+              int* __restrict__ out_len, uint32_t* __restrict__ crcs) {
     DFL_SMEM(smem);
-    uint8_t* data = smem;
-    uint16_t* prev = reinterpret_cast<uint16_t*>(smem + PARSE_PREV);
-    Parse& m = *reinterpret_cast<Parse*>(smem + PARSE_MISC);
+    uint8_t* data = smem + DATA_OFF;
+    uint16_t* prev = reinterpret_cast<uint16_t*>(smem + PREV_OFF);
+    uint16_t* head = reinterpret_cast<uint16_t*>(smem + HEAD_OFF);
+    Misc& m = *reinterpret_cast<Misc*>(smem + MISC_OFF);
     const int tid = threadIdx.x;
     const int slice = blockIdx.x;
     const long long* job = jobs + 4 * (long long)slice;
     const int window = (int)job[1], n = (int)job[2];
+    const bool final = job[3] != 0;
     const int R = window + n;
     const uint8_t* src = in + (job[0] - window);
-    const uint16_t* chains = prev_in + (job[0] - window);
 
-    for (int i = tid; i < R; i += THREADS) {
-        data[i] = src[i];
-        prev[i] = chains[i];
-    }
+    for (int i = tid; i < R; i += THREADS) data[i] = src[i];
+    for (int i = R + tid; i < REGION + 16; i += THREADS) data[i] = 0;
+    for (int i = tid; i < (1 << HASH_BITS); i += THREADS) head[i] = 0;
     {
         uint32_t c = (uint32_t)tid;
         for (int k = 0; k < 8; ++k) c = (c & 1) ? (c >> 1) ^ POLY : c >> 1;
@@ -388,7 +338,29 @@ parse_kernel(const uint8_t* __restrict__ in, const long long* __restrict__ jobs,
     if (tid < 30) m.d_freq[tid] = 0;
     __syncthreads();
 
-    // the parse of bytes [a, b); a match stops at b
+    // chains: prev[p] is the distance back to the nearest earlier position with
+    // p's hash (head holds the latest such position + 1), 0 for none in WINDOW
+    if (tid < 32) {
+        const int lane = tid;
+        const unsigned below = (1u << lane) - 1u;
+        for (int base = 0; base < R; base += 32) {
+            const int p = base + lane;
+            const bool has = p + 2 < R;
+            const uint32_t key = has ? hash3(data, p) : 0x10000u + (uint32_t)lane;
+            const unsigned group = __match_any_sync(0xFFFFFFFFu, key);
+            const unsigned lower = group & below;
+            int q = -1;
+            if (has) q = lower ? base + 31 - __clz(lower) : (int)head[key] - 1;
+            __syncwarp();
+            if (p < R) prev[p] = (q >= 0 && p - q <= WINDOW) ? (uint16_t)(p - q) : 0;
+            if (has && (group >> lane) == 1u) head[key] = (uint16_t)(p + 1);
+            __syncwarp();
+        }
+    }
+    __syncthreads();
+
+    // the parse of bytes [a, b), to tokens[slice][k][tid]: a literal its byte, a
+    // match 1 << 31 | length << 16 | distance; a match stops at b
     uint32_t* tok = tokens + (long long)slice * SLICE + tid;
     const int a = window + tid * SUB;
     const int b = imin(a + SUB, R);
@@ -422,47 +394,13 @@ parse_kernel(const uint8_t* __restrict__ in, const long long* __restrict__ jobs,
             if (p < b) cur = best_match(data, prev, p, b - p);
         }
     }
-    uint32_t* rec = records + (long long)slice * RECORD;
-    rec[REC_NTOK + tid] = (uint32_t)ntok;
+    m.ntok[tid] = (uint32_t)ntok;
     {
         uint32_t c = 0xFFFFFFFFu;
         for (int i = a; i < b; ++i) c = m.crc_table[(c ^ data[i]) & 0xFF] ^ (c >> 8);
         m.crc[tid] = ~c;
         m.crc_len[tid] = (uint32_t)(b > a ? b - a : 0);
     }
-    // the slice's CRC-32: the threads' combined in a tree
-    for (int stride = 1; stride < THREADS; stride <<= 1) {
-        __syncthreads();
-        if ((tid & (2 * stride - 1)) == 0) {
-            m.crc[tid] = crc_combine(m.crc[tid], m.crc[tid + stride], m.crc_len[tid + stride]);
-            m.crc_len[tid] += m.crc_len[tid + stride];
-        }
-    }
-    __syncthreads();
-    for (int i = tid; i < 286; i += THREADS) rec[REC_LL + i] = m.ll_freq[i];
-    if (tid < 30) rec[REC_D + tid] = m.d_freq[tid];
-    if (tid == 0) rec[REC_CRC] = m.crc[0];
-}
-
-// the slice's deflate bytes into its slot, from its tokens and record
-__global__ void __launch_bounds__(THREADS)
-encode_kernel(const uint8_t* __restrict__ in, const long long* __restrict__ jobs,
-              const uint32_t* __restrict__ tokens, const uint32_t* __restrict__ records,
-              uint8_t* __restrict__ slots, int* __restrict__ out_len) {
-    DFL_SMEM(smem);
-    uint32_t* buf = reinterpret_cast<uint32_t*>(smem);
-    Enc& m = *reinterpret_cast<Enc*>(smem + 4 * ENC_WORDS);
-    const int tid = threadIdx.x;
-    const int slice = blockIdx.x;
-    const long long* job = jobs + 4 * (long long)slice;
-    const int n = (int)job[2];
-    const bool final = job[3] == n;
-    const uint32_t* rec = records + (long long)slice * RECORD;
-    const uint32_t* tok = tokens + (long long)slice * SLICE + tid;
-
-    for (int i = tid; i < 286; i += THREADS) m.ll_freq[i] = rec[REC_LL + i];
-    if (tid < 30) m.d_freq[tid] = rec[REC_D + tid];
-    m.ntok[tid] = rec[REC_NTOK + tid];
     __syncthreads();
     if (tid == 0) m.ll_freq[256] = 1;   // the end of the block
     __syncthreads();
@@ -554,8 +492,7 @@ encode_kernel(const uint8_t* __restrict__ in, const long long* __restrict__ jobs
             slot[3] = (uint8_t)(~n & 0xFF);
             slot[4] = (uint8_t)((~n >> 8) & 0xFF);
         }
-        const uint8_t* src = in + job[0];
-        for (int i = tid; i < n; i += THREADS) slot[5 + i] = src[i];
+        for (int i = tid; i < n; i += THREADS) slot[5 + i] = data[window + i];
     } else {
         // each thread's bits, their exclusive prefix sum, then every field OR-ed in
         uint32_t mine = 0;
@@ -570,9 +507,10 @@ encode_kernel(const uint8_t* __restrict__ in, const long long* __restrict__ jobs
             }
         }
         m.bits[tid] = mine;
+        uint32_t* buf = reinterpret_cast<uint32_t*>(smem + PREV_OFF);
         const int words = (m.out_bytes + 3) / 4 + 1;
+        __syncthreads();   // the parse's reads of prev are over
         for (int i = tid; i < words; i += THREADS) buf[i] = 0;
-        __syncthreads();
         if (tid == 0) {
             uint32_t at = m.header_bits;
             for (int t = 0; t < THREADS; ++t) {
@@ -632,7 +570,20 @@ encode_kernel(const uint8_t* __restrict__ in, const long long* __restrict__ jobs
         uint32_t* out = reinterpret_cast<uint32_t*>(slot);
         for (int i = tid; i < (m.out_bytes + 3) / 4; i += THREADS) out[i] = buf[i];
     }
-    if (tid == 0) out_len[slice] = m.out_bytes;
+
+    // the slice's CRC-32: the threads' combined in a tree
+    for (int stride = 1; stride < THREADS; stride <<= 1) {
+        __syncthreads();
+        if ((tid & (2 * stride - 1)) == 0) {
+            m.crc[tid] = crc_combine(m.crc[tid], m.crc[tid + stride], m.crc_len[tid + stride]);
+            m.crc_len[tid] += m.crc_len[tid + stride];
+        }
+    }
+    __syncthreads();
+    if (tid == 0) {
+        out_len[slice] = m.out_bytes;
+        crcs[slice] = m.crc[0];
+    }
 }
 
 // a block a slice: its bytes to the sum of the slices' before it
@@ -655,44 +606,24 @@ pack_kernel(const uint8_t* __restrict__ slots, const int* __restrict__ out_len,
     for (int i = tid; i < out_len[slice]; i += THREADS) packed[at + i] = from[i];
 }
 
-// a block a member: members[3 * i] = {its first slice, its slices, the CRC-32 to
-// start from}; out[2 * i] = {its bytes, its CRC-32}
-__global__ void __launch_bounds__(THREADS)
-finish_kernel(const long long* __restrict__ jobs, const long long* __restrict__ members,
-              const int* __restrict__ out_len, const uint32_t* __restrict__ records,
-              long long* __restrict__ out) {
-    DFL_SMEM(smem);
-    long long* bytes = reinterpret_cast<long long*>(smem);
-    uint32_t* crc = reinterpret_cast<uint32_t*>(bytes + THREADS);
-    uint32_t* len = crc + THREADS;
-    const int tid = threadIdx.x;
-    const long long* mem = members + 3 * (long long)blockIdx.x;
-    const long long first = mem[0], count = mem[1];
-    const long long each = (count + THREADS - 1) / THREADS;
-    long long b = 0;
-    uint32_t c = 0, l = 0;   // crc32 of no bytes is 0
-    for (long long s = first + tid * each; s < first + imin((int)((tid + 1) * each), (int)count);
-         ++s) {
-        const uint32_t n = (uint32_t)jobs[4 * s + 2];
-        c = crc_combine(c, records[s * RECORD + REC_CRC], n);
-        l += n;
-        b += out_len[s];
-    }
-    bytes[tid] = b;
-    crc[tid] = c;
-    len[tid] = l;
-    for (int stride = 1; stride < THREADS; stride <<= 1) {
-        __syncthreads();
-        if ((tid & (2 * stride - 1)) == 0) {
-            bytes[tid] += bytes[tid + stride];
-            crc[tid] = crc_combine(crc[tid], crc[tid + stride], len[tid + stride]);
-            len[tid] += len[tid + stride];
+// a thread a member: members[3 * i] = {its first slice, its slices, the CRC-32
+// to start from}; out[2 * i] = {its bytes, its CRC-32}
+__global__ void finish_kernel(const long long* __restrict__ jobs,
+                              const long long* __restrict__ members, int n_members,
+                              const int* __restrict__ out_len, const uint32_t* __restrict__ crcs,
+                              long long* __restrict__ out) {
+    const uint32_t whole = x8nmodp(SLICE);
+    for (int i = threadIdx.x; i < n_members; i += FINISH_THREADS) {
+        const long long first = members[3 * i], count = members[3 * i + 1];
+        uint32_t crc = (uint32_t)members[3 * i + 2];
+        long long bytes = 0;
+        for (long long s = first; s < first + count; ++s) {
+            const uint32_t len = (uint32_t)jobs[4 * s + 2];
+            crc = multmodp(len == SLICE ? whole : x8nmodp(len), crc) ^ crcs[s];
+            bytes += out_len[s];
         }
-    }
-    __syncthreads();
-    if (tid == 0) {
-        out[2 * blockIdx.x] = bytes[0];
-        out[2 * blockIdx.x + 1] = crc_combine((uint32_t)mem[2], crc[0], len[0]);
+        out[2 * i] = bytes;
+        out[2 * i + 1] = crc;
     }
 }
 
@@ -700,29 +631,22 @@ finish_kernel(const long long* __restrict__ jobs, const long long* __restrict__ 
 
 #ifdef __CUDACC__
 extern "C" int cprt_deflate(const uint8_t* in, const long long* jobs, int n_slices,
-                            const long long* members, int n_members, uint16_t* prev,
-                            uint32_t* tokens, uint32_t* records, uint8_t* slots, int* out_len,
-                            uint8_t* packed, long long* member_out, void* stream) {
+                            const long long* members, int n_members, uint32_t* tokens,
+                            uint8_t* slots, int* out_len, uint32_t* crcs, uint8_t* packed,
+                            long long* member_out, void* stream) {
     using namespace dfl;
-    static_assert(PARSE_SMEM <= 232448, "a slice's shared memory exceeds the SM's");
+    static_assert(SMEM_BYTES <= 232448, "a slice's shared memory exceeds the SM's");
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err = cudaFuncSetAttribute(
-        parse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PARSE_SMEM);
+        slices_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     if (n_slices > 0) {
-        chains_kernel<<<n_slices, 32, CHAINS_SMEM, s>>>(in, jobs, prev);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-        parse_kernel<<<n_slices, THREADS, PARSE_SMEM, s>>>(in, jobs, prev, tokens, records);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-        encode_kernel<<<n_slices, THREADS, ENC_SMEM, s>>>(in, jobs, tokens, records, slots,
-                                                          out_len);
+        slices_kernel<<<n_slices, THREADS, SMEM_BYTES, s>>>(in, jobs, tokens, slots, out_len, crcs);
         if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
         pack_kernel<<<n_slices, THREADS, PACK_SMEM, s>>>(slots, out_len, packed);
         if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
-    if (n_members > 0)
-        finish_kernel<<<n_members, THREADS, FINISH_SMEM, s>>>(jobs, members, out_len, records,
-                                                              member_out);
+    finish_kernel<<<1, FINISH_THREADS, 0, s>>>(jobs, members, n_members, out_len, crcs, member_out);
     return (int)cudaGetLastError();
 }
 #endif

@@ -10,8 +10,7 @@ compressed bytes and the CRC-32s cross to the host.
 
 The input is a 1-D uint8 tensor of members laid end to end (``sizes``).
 Each member becomes one raw deflate stream, made of ``SLICE``-byte
-slices that are deflated independently (on the card a CUDA block a
-slice in each of the launches ``csrc/deflate.cu`` describes):
+slices that are deflated independently, one CUDA block each:
 
 - A slice's matches reach back up to ``WINDOW`` bytes, into the bytes
   before it in its member, as zlib's do. Positions are chained by a
@@ -65,8 +64,6 @@ LAZY = 32               # a match this long is taken without a lazy look
 TOO_FAR = 4096          # a 3-byte match further back is not taken
 # bytes a slice's output may take: its stored form, or less
 SLOT = SLICE + 256
-# u32 a slice passes from its parse to its encoding (csrc/deflate.cu)
-RECORD = 320 + THREADS
 # the empty final block of a member with no bytes (a fixed block's EOB)
 EMPTY = b"\x03\x00"
 
@@ -433,14 +430,14 @@ def deflate_reference(data, sizes: Sequence[int],
 def plan(sizes: Sequence[int], crc_starts: Sequence[int]):
     """The kernel's tables: jobs (slices, 4) int64, a slice's {offset of
     its first byte, bytes of its member before it that it may reach, its
-    bytes, bytes of its member from its first on}; members (members, 3)
-    int64, a member's {first slice, slices, CRC-32 to start from}."""
+    bytes, 1 if its member's last}; members (members, 3) int64, a
+    member's {first slice, slices, CRC-32 to start from}."""
     jobs, members, at = [], [], 0
     for size, crc in zip(sizes, crc_starts):
         members.append((len(jobs), -(-size // SLICE), crc))
         for s in range(0, size, SLICE):
-            jobs.append((at + s, min(s, WINDOW), min(SLICE, size - s),
-                         size - s))
+            n = min(SLICE, size - s)
+            jobs.append((at + s, min(s, WINDOW), n, int(s + n == size)))
         at += size
     return (np.array(jobs, np.int64).reshape(-1, 4),
             np.array(members, np.int64).reshape(-1, 3))
@@ -495,19 +492,17 @@ def deflate(data: torch.Tensor, sizes: Sequence[int],
     with torch.cuda.device(dev):
         jobs_d = torch.from_numpy(jobs).to(dev)
         members_d = torch.from_numpy(members).to(dev)
-        prev = scratch(data.numel(), torch.int16)     # a chain an input byte
         tokens = scratch(n * SLICE, torch.int32)
-        records = scratch(n * RECORD, torch.int32)
         slots = scratch(n * SLOT, torch.uint8)
         out_len = scratch(n, torch.int32)
+        crcs = scratch(n, torch.int32)
         packed = scratch(n * SLOT, torch.uint8)
         member_out = scratch(2 * len(sizes), torch.int64)
         err = load_library().cprt_deflate(
             data.data_ptr(), jobs_d.data_ptr(), n, members_d.data_ptr(),
-            len(sizes), prev.data_ptr(), tokens.data_ptr(),
-            records.data_ptr(), slots.data_ptr(), out_len.data_ptr(),
-            packed.data_ptr(), member_out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            len(sizes), tokens.data_ptr(), slots.data_ptr(),
+            out_len.data_ptr(), crcs.data_ptr(), packed.data_ptr(),
+            member_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         check(err, "deflate")
         count_launch(deflate)
         got = member_out[:2 * len(sizes)].view(-1, 2).tolist()

@@ -153,7 +153,7 @@ def test_an_archive_through_the_plain_version_reads_back(tmp_path):
 # csrc/deflate.cu is plain C++ outside its CUDA-only parts; this harness
 # gives it the built-ins it uses (a block of threads with barriers for
 # __syncthreads and __syncwarp, __match_any_sync through a warp's scratch,
-# atomics) and runs its three kernels as cprt_deflate launches them.
+# atomics) and runs its kernels as cprt_deflate launches them.
 
 HARNESS = r"""
 #include <barrier>
@@ -199,12 +199,6 @@ inline unsigned __brev(unsigned x) {
 }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline unsigned atomicOr(unsigned* p, unsigned v) { return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST); }
-inline unsigned atomicMax(unsigned* p, unsigned v) {
-    unsigned old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
-    while (old < v && !__atomic_compare_exchange_n(p, &old, v, false, __ATOMIC_SEQ_CST,
-                                                   __ATOMIC_SEQ_CST)) {}
-    return old;
-}
 
 #include "deflate.cu"
 
@@ -230,19 +224,16 @@ static void launch(int grid, int block, int smem, const std::function<void()>& b
 }
 
 extern "C" int host_deflate(const uint8_t* in, const long long* jobs, int n_slices,
-                            const long long* members, int n_members, uint16_t* prev,
-                            uint32_t* tokens, uint32_t* records, uint8_t* slots, int* out_len,
-                            uint8_t* packed, long long* member_out) {
+                            const long long* members, int n_members, uint32_t* tokens,
+                            uint8_t* slots, int* out_len, uint32_t* crcs, uint8_t* packed,
+                            long long* member_out) {
     using namespace dfl;
-    launch(n_slices, 32, CHAINS_SMEM, [&] { chains_kernel(in, jobs, prev); });
-    launch(n_slices, THREADS, PARSE_SMEM,
-           [&] { parse_kernel(in, jobs, prev, tokens, records); });
-    launch(n_slices, THREADS, ENC_SMEM,
-           [&] { encode_kernel(in, jobs, tokens, records, slots, out_len); });
+    launch(n_slices, THREADS, SMEM_BYTES,
+           [&] { slices_kernel(in, jobs, tokens, slots, out_len, crcs); });
     launch(n_slices, THREADS, PACK_SMEM, [&] { pack_kernel(slots, out_len, packed); });
-    launch(n_members, THREADS, FINISH_SMEM,
-           [&] { finish_kernel(jobs, members, out_len, records, member_out); });
-    return PARSE_SMEM;
+    launch(1, FINISH_THREADS, FINISH_SMEM,
+           [&] { finish_kernel(jobs, members, n_members, out_len, crcs, member_out); });
+    return SMEM_BYTES;
 }
 """
 
@@ -262,24 +253,22 @@ def host_deflate(tmp_path_factory):
                    capture_output=True)
     lib = ctypes.CDLL(str(d / "libharness.so"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.host_deflate.argtypes = [P, P, I, P, I, P, P, P, P, P, P, P]
+    lib.host_deflate.argtypes = [P, P, I, P, I, P, P, P, P, P, P]
     lib.host_deflate.restype = I
 
     def run(data: np.ndarray, sizes, starts):
         jobs, members = dfl.plan(sizes, starts)
         n = len(jobs)
-        prev = np.zeros(max(len(data), 1), np.uint16)
         tokens = np.zeros(max(n, 1) * SLICE, np.uint32)
-        records = np.zeros(max(n, 1) * dfl.RECORD, np.uint32)
         slots = np.zeros(max(n, 1) * dfl.SLOT, np.uint8)
         out_len = np.zeros(max(n, 1), np.int32)
+        crcs = np.zeros(max(n, 1), np.uint32)
         packed = np.zeros(max(n, 1) * dfl.SLOT, np.uint8)
         out = np.zeros((max(len(sizes), 1), 2), np.int64)
         ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
         smem = lib.host_deflate(ptr(data), ptr(jobs), n, ptr(members),
-                                len(sizes), ptr(prev), ptr(tokens),
-                                ptr(records), ptr(slots), ptr(out_len),
-                                ptr(packed), ptr(out))
+                                len(sizes), ptr(tokens), ptr(slots),
+                                ptr(out_len), ptr(crcs), ptr(packed), ptr(out))
         assert smem <= 232448       # an H100 block's shared memory
         streams, at = [], 0
         for size, crc in out[:len(sizes)].tolist():
