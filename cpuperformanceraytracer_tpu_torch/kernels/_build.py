@@ -123,7 +123,7 @@ _SIGNATURES = {
     "cprt_deflate": [
         _P, _P, _I,                       # in (bytes), jobs (slices, 4), slices
         _P, _I,                           # members (members, 3), members
-        _P, _P, _P, _P, _P,               # prev tokens records slots out_len (scratch)
+        _P, _P, _P, _P,                   # tokens slots out_len crcs (scratch)
         _P, _P,                           # packed, member_out (members, 2)
         _P,                               # stream
     ],

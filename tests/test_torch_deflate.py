@@ -296,3 +296,14 @@ def test_kernel_source_matches_plain_on_host(host_deflate, case):
     for (g, gc), (w, wc) in zip(got, want):
         assert gc == wc
         assert g == w
+
+
+def test_the_library_declares_the_entry_point_as_the_source_does():
+    """ctypes passes as many arguments as ``_build`` declares for
+    ``cprt_deflate``; the source's C function must take that many."""
+    from cpuperformanceraytracer_tpu_torch.kernels import _build
+
+    src = (_build.CSRC_DIR / "deflate.cu").read_text()
+    params = src.split('extern "C" int cprt_deflate(', 1)[1].split(")", 1)[0]
+    declared = dict(_build.RENDER.signatures)["cprt_deflate"]
+    assert len(declared) == params.count(",") + 1
