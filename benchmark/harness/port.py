@@ -7,11 +7,17 @@ points the window drives: ``OfflineRenderer.step()`` for a progressive
 frame, and one replay of ``make_train_step_k``'s K steps for a training
 dispatch; the program's own checkpoint save of a progressive render; and
 a training problem's gradient through the call a training step makes.
+
+A cell of several ranks (``harness/world.py``) joins each rank to its
+world through the program's own ``init_distributed`` and ``make_mesh``,
+and hands the mesh to ``OfflineRenderer``, which then renders and
+accumulates the rank's rows.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from cpuperformanceraytracer_tpu_torch.config import RenderConfig
 from cpuperformanceraytracer_tpu_torch.core.vecmath import Vec3
@@ -26,6 +32,12 @@ from cpuperformanceraytracer_tpu_torch.diff.inverse import (
     make_train_step_k,
 )
 from cpuperformanceraytracer_tpu_torch.io import checkpoint
+from cpuperformanceraytracer_tpu_torch.kernels._build import load_library
+from cpuperformanceraytracer_tpu_torch.parallel.mesh import (
+    AXES,
+    init_distributed,
+    make_mesh,
+)
 from cpuperformanceraytracer_tpu_torch.render.driver import OfflineRenderer
 from cpuperformanceraytracer_tpu_torch.scene.camera import make_camera
 from cpuperformanceraytracer_tpu_torch.scene.types import (
@@ -38,6 +50,29 @@ from cpuperformanceraytracer_tpu_torch.texture.texture import Texture
 
 # the program's kernels: its CUDA ones
 BACKEND = "cuda"
+
+
+def load_kernels() -> None:
+    """Build, or load where built, the program's kernel library in this
+    process, so that ranks started after it only load it."""
+    if BACKEND == "cuda":
+        load_library()
+
+
+def join_world(rank: int, size: int, address: str, backend: str,
+               shape: tuple, device):
+    """This process as rank ``rank`` of a world of ``size`` ranks whose
+    store rank 0 serves at ``address`` ("host:port"), over ``backend``;
+    returns the rank's mesh of ``shape`` (px, spp) on ``device``. Every
+    rank calls it."""
+    init_distributed(address, size, rank, backend)
+    return make_mesh(shape, AXES, device=device)
+
+
+def leave_world() -> None:
+    """End this process's part in its world, where it has one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _vec3(a: torch.Tensor) -> Vec3:
@@ -76,15 +111,16 @@ def render_config(opts: dict, warmup_frames: int = 0):
 class Progressive:
     """One viewer's progressive render: ``call()`` enqueues the next
     frame (``OfflineRenderer.step()``); ``accum`` is the (3, H, W)
-    accumulator it updates in place."""
+    accumulator it updates in place, or under a ``mesh`` this rank's rows
+    of it."""
 
     steps_per_call = 1
 
-    def __init__(self, inputs, traffic, device):
+    def __init__(self, inputs, traffic, device, mesh=None):
         scene, camera, tex = program_scene(inputs, device)
         cfg = render_config(inputs.opts, traffic["warmup_calls"])
         self.renderer = OfflineRenderer(cfg, tex, scene=scene, camera=camera,
-                                        device=device, silent=True)
+                                        device=device, silent=True, mesh=mesh)
 
     def warm(self):
         """The renderer's own warm-up: frames into a scratch accumulator."""
@@ -97,17 +133,28 @@ class Progressive:
     def accum(self) -> torch.Tensor:
         return self.renderer.local
 
+    @property
+    def writes(self) -> bool:
+        """True where this rank writes the render's files: rank 0 of a
+        mesh, or the render alone."""
+        mesh = self.renderer.mesh
+        return mesh is None or mesh.rank == 0
+
     def save(self, path: str) -> None:
         """The program's checkpoint of the render to ``path``: the
         renderer's own ``save_checkpoint(path)`` where it has one, else
         ``io/checkpoint.save_checkpoint`` of its accumulator, frame and
-        config, as ``OfflineRenderer.run`` saves."""
+        config, as ``OfflineRenderer.run`` saves. Under a mesh every rank
+        calls it: the accumulator is assembled from every rank's rows (a
+        collective), and rank 0 writes it."""
         r = self.renderer
         save = getattr(r, "save_checkpoint", None)
         if save is not None:
             save(path)
-        else:
-            checkpoint.save_checkpoint(path, r.accum, r.frame, r.cfg)
+            return
+        accum = r.accum
+        if self.writes:
+            checkpoint.save_checkpoint(path, accum, r.frame, r.cfg)
 
 
 def train_problem(inputs, device) -> InverseProblem:

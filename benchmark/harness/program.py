@@ -34,6 +34,10 @@ host profiler's own cost for each operation it records.
 A pass that fails is logged and its metrics are left out; the run's
 other metrics stand.
 
+In a cell of several ranks the pass's sessions are built on every rank
+and every call is made on every rank (``harness/world.py``); what it
+reads is rank 0's.
+
 The benchmark reaches the program through the adapter (``port.py``):
 the tracing module is the one its imports loaded with the program. A
 program without one, or without ``enable``, has no pass, and the pass's
@@ -138,16 +142,18 @@ def held_host(call, n: int, device, path):
 
 
 @contextlib.contextmanager
-def fresh_session(profiling, kind, inputs, cell, device, captured_on: bool):
-    """A fresh session of the cell built with the program's tracing on or
-    off (a training session captures its graph then), yielded with
-    tracing on and the counters reset; at the end tracing is off and the
-    session released."""
+def fresh_session(profiling, world, kind, inputs, cell, device,
+                  captured_on: bool):
+    """A fresh session of the cell, on every rank of the run's ``world``,
+    built with the program's tracing on or off (a training session
+    captures its graph then), yielded with tracing on and the counters
+    reset; at the end tracing is off and the session released. The
+    program's tracing is rank 0's: a follower's runs with it off."""
     session = None
     if captured_on:
         profiling.enable()
     try:
-        session = kind.Session(inputs, cell, 0.0, device)
+        session = world.session(kind, inputs, cell, 0.0)
         sync(device)
         profiling.enable()
         profiling.reset()
@@ -180,12 +186,12 @@ def run_pass(ctx, log=None):
     kind = load_module("kinds", traffic["kind"])
     path = ROOT / "build" / "benchmark" / f"trace_{cell.name}.program.json"
     inputs = make_inputs(cell, seed, device)
-    with fresh_session(profiling, kind, inputs, cell, device,
+    with fresh_session(profiling, ctx.world, kind, inputs, cell, device,
                        True) as session:
         tr = traced(session.call, traffic["trace_calls"], path)
         got = profiling.read()
         steps = tr.calls * session.steps_per_call
-    with fresh_session(profiling, kind, inputs, cell, device,
+    with fresh_session(profiling, ctx.world, kind, inputs, cell, device,
                        False) as session:
         host = held_host(session.call, traffic["held_calls"], device,
                          path.with_name(f"trace_{cell.name}.program_host.json"))

@@ -7,6 +7,12 @@ limits are ``benchmark/checks/<cell>.json``; a per-layer metric is read
 by ``benchmark/metrics/<metric>.py`` and a kernel's work counted by
 ``benchmark/work/<kernel>.py``. Nothing here names a cell, a mix or a
 metric: a new one is a new entry and new files.
+
+A configuration may give the program's mesh, ``"mesh": {"px": p, "spp":
+s}`` (rows over "px", samples over "spp", as the program's
+``parallel/mesh.py`` names its axes); its cells then run as a world of
+p·s ranks, one card a rank (``harness/world.py``), and ask for p·s chips.
+A configuration without one is a world of one.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ class Cell:
     checks: dict
     end_to_end: list
     per_layer: list
+    chips: int = 1
+    mesh: tuple = (1, 1)        # (px, spp)
 
     @property
     def render(self) -> dict:
@@ -57,6 +65,7 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     w = cells[name]
     configs = {c["name"]: c for c in spec["configs"]}
     config = load_json(root / configs[w["config"]]["file"])
+    mesh = world_shape(name, w["chips"], config)
     traffic = load_json(root / "benchmark" / "traffic" / f"{w['traffic']}.json")
     checks = load_json(root / "benchmark" / "checks" / f"{name}.json")
     e2e = [m for m in spec["end_to_end"]
@@ -65,7 +74,25 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     layer = [m for m in spec["per_layer"]
              if (name in m["workloads"] if "workloads" in m
                  else m["moves"] in reported)]
-    return Cell(name, config, traffic, checks, e2e, layer)
+    return Cell(name, config, traffic, checks, e2e, layer, w["chips"], mesh)
+
+
+def world_shape(name: str, chips: int, config: dict) -> tuple:
+    """(px, spp) of the configuration's mesh, (1, 1) without one; raises
+    where the cell ``name`` asks for another number of chips than the
+    mesh has ranks, before anything runs."""
+    mesh = config.get("mesh", {})
+    if set(mesh) - {"px", "spp"} or not all(
+            isinstance(v, int) and v >= 1 for v in mesh.values()):
+        raise ValueError(f"the mesh of {config.get('name')!r}, {mesh}: want "
+                         '{"px": p, "spp": s}, whole numbers from 1')
+    shape = (mesh.get("px", 1), mesh.get("spp", 1))
+    if chips != shape[0] * shape[1]:
+        raise ValueError(
+            f"workload {name!r} asks for {chips} chip(s), but its "
+            f"configuration's mesh (px, spp) = {shape} is a world of "
+            f"{shape[0] * shape[1]} rank(s), one chip a rank")
+    return shape
 
 
 def load_module(kind: str, name: str, root: Path = ROOT):

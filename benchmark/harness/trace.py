@@ -106,14 +106,18 @@ def span_s(ops) -> float:
     return (max(s + d for _, s, d in ops) - min(s for _, s, _ in ops)) / 1e6
 
 
-def traced(call, n: int, path: Path) -> Trace:
+def traced(call, n: int, path: Path, started=None) -> Trace:
     """Profile ``n`` calls enqueued back to back and the synchronise that
-    ends them; the Chrome trace goes to ``path``."""
+    ends them; the Chrome trace goes to ``path``. ``started``, where
+    given, is called once the profiler runs, before the first call (the
+    ranks of a world start their calls together there)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if started is not None:
+            started()
         for _ in range(n):
             with record_function("bench.call"):
                 call()

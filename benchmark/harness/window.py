@@ -86,42 +86,71 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
+class Chunks:
+    """The window's calls, a chunk at a time, as every rank of a world
+    makes them (``run_window`` here, a follower's ``on_chunk`` in
+    ``harness/world.py``): ``run(n, elapsed)`` hands ``session`` its
+    ``plan`` and makes the chunk's calls from call n, each between its
+    hooks and followed by an event, then waits, past ``in_flight``
+    chunks, for the end of the oldest still running; ``drain()`` ends
+    the window; ``call_ms()`` is the device time of each call, from
+    consecutive events. Only the stop rule is the caller's."""
+
+    def __init__(self, session: Session, chunk: int, in_flight: int):
+        self.session, self.chunk, self.in_flight = session, chunk, in_flight
+        self.clock = Clock()
+        self.clock.sync()
+        self.ends = collections.deque()
+        # no garbage collection in the window: the event kept a call would
+        # otherwise set off collections that hold the host up mid-window;
+        # the caller enables it again once the window has ended
+        gc.collect()
+        gc.disable()
+        self.t0 = time.perf_counter()
+        self.marks = [self.clock.mark()]
+
+    def run(self, n: int, elapsed: float) -> int:
+        """The chunk from call ``n``, planned ``elapsed`` seconds into
+        the window; returns the number of its next call."""
+        s = self.session
+        s.plan(n, elapsed)
+        for i in range(n, n + self.chunk):
+            s.before(i)
+            s.call()
+            s.after(i)
+            self.marks.append(self.clock.mark())
+        self.ends.append(self.marks[-1])
+        if len(self.ends) >= self.in_flight:
+            self.clock.wait(self.ends.popleft())
+        return n + self.chunk
+
+    def drain(self) -> None:
+        """Wait for what the calls started, and for the device."""
+        self.session.drain()
+        self.clock.sync()
+
+    def call_ms(self) -> list:
+        m = self.marks
+        return [self.clock.ms(a, b) for a, b in zip(m, m[1:])]
+
+
 def run_window(session: Session, seconds: float, chunk: int,
                in_flight: int) -> Window:
     """Enqueue ``session.call()`` in chunks of ``chunk`` until ``seconds``
     have passed, at most ``in_flight`` chunks ahead of the device."""
-    clock = Clock()
-    clock.sync()
-    ends = collections.deque()
-    marks = []
+    chunks = Chunks(session, chunk, in_flight)
     n = 0
-    # no garbage collection in the window: the event kept a call would
-    # otherwise set off collections that hold the host up mid-window
-    gc.collect()
-    gc.disable()
     try:
-        t0 = time.perf_counter()
-        marks.append(clock.mark())
         while True:
-            session.plan(n, time.perf_counter() - t0)
-            for _ in range(chunk):
-                session.before(n)
-                session.call()
-                session.after(n)
-                marks.append(clock.mark())
-                n += 1
-            ends.append(marks[-1])
-            if len(ends) >= in_flight:
-                clock.wait(ends.popleft())
-            if time.perf_counter() - t0 >= seconds and not session.pending():
+            n = chunks.run(n, time.perf_counter() - chunks.t0)
+            if (time.perf_counter() - chunks.t0 >= seconds
+                    and not session.pending()):
                 break
-        session.drain()
-        clock.sync()
-        elapsed = time.perf_counter() - t0
+        chunks.drain()
+        elapsed = time.perf_counter() - chunks.t0
     finally:
         gc.enable()
-    call_ms = [clock.ms(a, b) for a, b in zip(marks, marks[1:])]
-    return Window(n, elapsed, call_ms)
+    return Window(n, elapsed, chunks.call_ms())
 
 
 def held_ms(call, n: int, device) -> tuple:

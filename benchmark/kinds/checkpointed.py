@@ -22,7 +22,10 @@ kind checks it (``pixels_off``), and every save (``saves_off``: the
 share of saves whose file, read back with ``numpy.load``, is missing,
 unreadable, or not a bit-exact copy of its clone with the frame and the
 format version the program was at; ``check.save_fault``). The files are
-removed after the check.
+removed after the check. In a world of several ranks every rank saves
+(the program's save is a collective) and rank 0 writes the files; each
+rank keeps its rows of each save's clone, and the check compares a save
+with the whole clone assembled from every rank's rows.
 """
 
 from __future__ import annotations
@@ -88,15 +91,17 @@ class Session(progressive.Session):
     ``saves`` holds (path, frame, accumulator clone, host ms of the
     save call) of each."""
 
-    def __init__(self, inputs, cell, seconds: float, device):
-        super().__init__(inputs, cell, seconds, device)
+    def __init__(self, inputs, cell, seconds: float, device, mesh=None):
+        super().__init__(inputs, cell, seconds, device, mesh)
         t = cell.traffic
         self.every, self.min_saves = t["save_every"], t["min_saves"]
         self.wait_s = t["save_wait_s"]
         self._planned.update(inputs.check_frames)
         self.dir = save_dir(cell)
-        shutil.rmtree(self.dir, ignore_errors=True)
-        self.dir.mkdir(parents=True)
+        self.writes = self.program.writes
+        if self.writes:
+            shutil.rmtree(self.dir, ignore_errors=True)
+            self.dir.mkdir(parents=True)
         self.device = device
         self.frames = 0
         self.saves = []
@@ -122,12 +127,23 @@ class Session(progressive.Session):
         return super().pending() or len(self.saves) < self.min_saves
 
     def drain(self) -> None:
-        """Wait until every save of the window is whole on disk."""
+        """Wait until every save of the window is whole on disk (on the
+        rank that writes them)."""
         self.in_window = len(self.saves)
         deadline = time.perf_counter() + self.wait_s
-        for path, *_ in self.saves:
+        for path, *_ in (self.saves if self.writes else ()):
             while not whole(path) and time.perf_counter() < deadline:
                 time.sleep(0.001)
+
+    def rows(self) -> dict:
+        """The snapshots' rows and this rank's rows of each save's clone."""
+        return {**super().rows(), "saves": [want for _, _, want, _ in
+                                            self.saves]}
+
+    def take_rows(self, whole: dict) -> None:
+        super().take_rows(whole)
+        self.saves = [(path, frame, want, ms) for (path, frame, _, ms), want
+                      in zip(self.saves, whole["saves"])]
 
     def check(self, inputs, cell, log):
         """The progressive check's numbers and counts, with ``saves_off``

@@ -8,7 +8,9 @@ the seed. A checked frame's accumulator is kept on either side of it
 the program's own accumulator before them); after the window the
 reference renders each checked frame, accumulates it into the program's
 accumulator from before it, and compares the two accumulators after it
-(``check.pixels_off``).
+(``check.pixels_off``). In a world of several ranks each rank keeps its
+own rows' snapshots (``rows``), and the check reads the whole
+accumulators assembled from every rank's (``take_rows``).
 """
 
 from __future__ import annotations
@@ -55,10 +57,10 @@ class Session(window.Session):
 
     steps_per_call = 1
 
-    def __init__(self, inputs, cell, seconds: float, device):
+    def __init__(self, inputs, cell, seconds: float, device, mesh=None):
         from benchmark.harness import port
 
-        self.program = port.Progressive(inputs, cell.traffic, device)
+        self.program = port.Progressive(inputs, cell.traffic, device, mesh)
         self.program.warm()
         self.call = self.program.call
         self.seconds = seconds
@@ -82,6 +84,15 @@ class Session(window.Session):
 
     def release(self) -> None:
         self.program = self.call = None
+
+    def rows(self) -> dict:
+        """What the check reads, as this rank holds it: its rows of each
+        snapshot."""
+        return {"snaps": self.snaps}
+
+    def take_rows(self, whole: dict) -> None:
+        """What the check reads, assembled from every rank's ``rows``."""
+        self.snaps = whole["snaps"]
 
     def check(self, inputs, cell, log):
         """({"pixels_off": worst share, ...}, the reference's live paths

@@ -65,9 +65,12 @@ class Session(window.Session):
     captures the graph) and its losses and parameters kept; its problem
     (scene, texture, target) outlives the loop for the gradient's check."""
 
-    def __init__(self, inputs, cell, seconds: float, device):
+    def __init__(self, inputs, cell, seconds: float, device, mesh=None):
         from benchmark.harness import port
 
+        if mesh is not None:
+            raise ValueError(f"{cell.name}: the train kind runs on one card; "
+                             "its configuration may give no mesh")
         self.program = port.Train(inputs, cell.traffic, device)
         self.program.call()
         self.first = {"losses": self.program.losses.clone(),

@@ -3,8 +3,9 @@ run of every cell prints a result line that keeps the contract, the
 lower-precision control fails the limits of a progressive cell and of
 the checkpoint saves at their own size, and a training cell's
 ``grad_gap`` holds the program's first gradient under its limit and
-fails it scaled by 2 or by 0.5 in the program's backward. Run on the
-card with
+fails it scaled by 2 or by 0.5 in the program's backward; and a world
+of two ranks sharing the card over gloo runs the tiny sharded cells
+through ``main.run`` and comes out correct. Run on the card with
 
     python -m pytest -p no:cacheprovider benchmark/tests/test_bench_card.py
 """
@@ -12,14 +13,17 @@ card with
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
 import torch
 
-from benchmark.harness import check, port
+from benchmark.harness import check, main, port, spec
 from benchmark.harness.inputs import make_inputs
 from benchmark.harness.spec import load_cell, load_module, load_spec
+from benchmark.tests.test_bench_correct import small_cell
+from benchmark.tests.test_bench_world import sharded_copy
 from cpuperformanceraytracer_tpu_torch.diff import grad
 from planted import backward_scaled
 
@@ -105,3 +109,29 @@ def test_the_gradient_check_at_the_cells_size(card, cell, factor,
     limit = c.checks["limits"]["grad_gap"]
     assert got["loss_gap"] <= c.checks["limits"]["loss_gap"], got
     assert (got["grad_gap"] <= limit) == (factor == 1.0), got
+
+
+@pytest.mark.parametrize("mix", ["progressive", "checkpointed"])
+@pytest.mark.parametrize("trace", [0, 1])
+def test_a_world_of_two_ranks_sharing_the_card_is_correct(card, mix, trace,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """``glass_sharded`` (mesh px 2, ``test_bench_world.sharded_copy``)
+    at the small size as two ranks on the one card, over gloo, through
+    ``main.run``: correct, both ranks counted; traced, every rank's trace
+    written and read."""
+    root = sharded_copy(tmp_path / "copy")
+    monkeypatch.setattr(spec, "ROOT", tmp_path)
+    monkeypatch.setattr(main, "load_cell",
+                        lambda name: small_cell(name, root=root))
+    cell = f"glass_sharded.{mix}"
+    result, _ = main.run(cell, 2 ** 31 + 41, 1.0, bool(trace), card,
+                         time.perf_counter())
+    assert result["correct"], result["checks"]
+    dev = result["device"]
+    assert dev["count"] == 2 and dev["memory_peak_bytes"] > 0
+    if trace:
+        assert 0 < dev["busy_s"] <= dev["window_s"]
+        for r in range(2):
+            assert (ROOT / "build" / "benchmark"
+                    / f"trace_{cell}.rank{r}.json").exists()

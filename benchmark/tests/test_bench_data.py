@@ -17,7 +17,12 @@ import torch
 
 from benchmark.harness import window
 from benchmark.harness.inputs import gradient_sky, make_inputs
-from benchmark.harness.spec import load_cell, load_module, load_spec
+from benchmark.harness.spec import (
+    load_cell,
+    load_module,
+    load_spec,
+    world_shape,
+)
 
 ROOT = Path(__file__).resolve().parents[2]
 SPEC = load_spec()
@@ -48,7 +53,7 @@ def test_names_units_and_lines():
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
     for w in SPEC["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and 1 <= len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200
         assert "\n" not in w["why"] and "\t" not in w["why"]
     for c in SPEC["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
@@ -64,6 +69,54 @@ def test_names_units_and_lines():
         assert set(m) - {"workloads"} == {"name", "unit", "better", "source",
                                           "layer", "moves"}
     assert len(json.dumps(SPEC)) < 64 * 1024
+    assert four_chip_cells_admitted(SPEC["workloads"])
+
+
+def four_chip_cells_admitted(workloads) -> bool:
+    """At most a quarter of the cells, rounded down, ask for 4 chips; one
+    always may."""
+    fours = sum(w["chips"] == 4 for w in workloads)
+    return fours <= max(1, len(workloads) // 4)
+
+
+@pytest.mark.parametrize("cells, fours, admitted", [
+    (6, 1, True), (7, 1, True), (7, 2, False), (8, 2, True), (8, 3, False),
+    (3, 1, True), (3, 2, False)])
+def test_four_chip_cells_up_to_the_cap(cells, fours, admitted):
+    workloads = [{"chips": 4 if i < fours else 1} for i in range(cells)]
+    assert four_chip_cells_admitted(workloads) == admitted
+
+
+@pytest.mark.parametrize("chips, mesh, shape", [
+    (1, None, (1, 1)), (4, {"px": 4}, (4, 1)), (4, {"px": 2, "spp": 2},
+                                                 (2, 2)),
+    (4, None, None), (2, {"px": 4}, None), (1, {"px": 2}, None),
+    (4, {"px": 4, "rows": 1}, None), (4, {"px": 4.0}, None)])
+def test_a_cell_asks_for_as_many_chips_as_its_mesh_has_ranks(chips, mesh,
+                                                             shape):
+    """``chips`` = px · spp of the configuration's mesh (a world of one
+    without one); any other count, or a mesh of other axes, is refused
+    before anything runs."""
+    config = {"name": "c"} if mesh is None else {"name": "c", "mesh": mesh}
+    if shape is None:
+        with pytest.raises(ValueError):
+            world_shape("c.mix", chips, config)
+    else:
+        assert world_shape("c.mix", chips, config) == shape
+
+
+def test_a_run_of_a_cell_whose_chips_are_not_its_mesh_is_refused(tmp_path):
+    """A copy of the benchmark whose 4K configuration gains the mesh
+    {"px": 4}: its cells, each on one chip, no longer load."""
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    path = tmp_path / "benchmark/configs/offline_4k.json"
+    cfg = json.loads(path.read_text())
+    path.write_text(json.dumps(dict(cfg, mesh={"px": 4})))
+    with pytest.raises(ValueError, match="asks for 1 chip"):
+        load_cell("offline_4k.progressive", root=tmp_path)
+    assert load_cell("glass_720p.progressive", root=tmp_path).mesh == (1, 1)
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from benchmark.harness import program
+from benchmark.harness import program, world
 from benchmark.harness.spec import load_module, load_spec
 from benchmark.harness.trace import Trace
 
@@ -208,7 +208,8 @@ def _ctx():
                                           "calls_per_chunk": 1,
                                           "chunks_in_flight": 2,
                                           "held_calls": 1})
-    return types.SimpleNamespace(trace=object(), cell=cell)
+    return types.SimpleNamespace(trace=object(), cell=cell,
+                                 world=world.Solo(torch.device("cuda", 0)))
 
 
 def test_the_pass_runs_in_order_with_tracing_on_inside_it(fake_pass):

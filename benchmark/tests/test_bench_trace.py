@@ -67,6 +67,7 @@ class Ctx:
         self.trace, self.steps_per_call = trace, 1
         self.held = (0.9, 0.2)
         self.window = Window(calls=10, seconds=0.01, call_ms=[1.0] * 10)
+        self.ranks = [self.window.call_ms]
         self.work = {"n_px": 1000, "live_per_launch": 3000, "n_quads": 4,
                      "n_spheres": 7, "n_materials": 11, "n_texels": 64,
                      "texels_per_launch": 10, "spp": 1}
